@@ -1,0 +1,531 @@
+#!/usr/bin/env python
+"""End-to-end check of the PyTorch/CUDA port on one NVIDIA GPU.
+
+Drives the port's main path (openmmgridforce_tpu_torch) at full width:
+receptor grids from the hand-written gridgen kernel, cubic B-spline packing
+and fusion, and a 1000-step classic-Langevin segment of 1000 ligand
+replicas. Every phase prints one JSON line; the last line is
+{"ok": true, "device": {...}}. Any failed gate raises and the script exits
+non-zero. Without a CUDA device it exits non-zero and prints no result.
+
+    python3 chip_smoke.py [--seed N]
+
+Imports nothing of JAX or of the JAX package.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+N_LIGAND = 47
+N_RECEPTOR = 9133
+N_REPLICAS = 1000
+N_STEPS = 1000
+N_WARMUP = 50
+N_EVAL_POSES = 256
+SPACING = 0.025       # nm
+MARGIN = 1.0          # nm around the ligand's bounds
+GRID_CAP = 41840.0
+GRID_TYPES = ("charge", "ljr", "lja")
+RECEPTOR_GAP = 0.7          # nm, least receptor-ligand atom distance
+RECEPTOR_CHARGE_SD = 0.1    # e
+H100_FP32_FLOPS = 67e12       # dense FP32 peak, H100 SXM at 700 W
+H100_BYTES_PER_S = 3.35e12
+# rsqrt runs on the special-function (MUFU) pipe: 16 results per SM per
+# clock against 256 FP32 operations (128 FMA lanes), so 1/16 of the peak
+H100_MUFU_PER_S = H100_FP32_FLOPS / 16
+# FP32 operations per point-atom pair of the gridgen kernel: 3 subtractions,
+# 5 for r^2, the clamp, the rsqrt, the power (0, 4 or 3 multiplies), the
+# multiply by K and the add into the sum
+GRIDGEN_OPS_PER_PAIR = {"charge": 12, "ljr": 16, "lja": 15}
+
+# element -> (mass amu, sigma nm, epsilon kJ/mol, valence)
+_ELEMENTS = {"C": (12.011, 0.34, 0.36, 4), "N": (14.007, 0.325, 0.71, 3),
+             "O": (15.999, 0.296, 0.88, 2), "H": (1.008, 0.26, 0.066, 1)}
+
+
+def emit(obj):
+    print(json.dumps(obj), flush=True)
+
+
+def check(cond, msg):
+    if not cond:
+        raise RuntimeError(f"gate failed: {msg}")
+
+
+# ----------------------------------------------------------------------
+# The synthetic complex
+# ----------------------------------------------------------------------
+
+def _graph_distances(n, bonds):
+    """All-pairs bond-graph distances (BFS from every atom) [n, n]."""
+    nbr = [[] for _ in range(n)]
+    for i, j in bonds:
+        nbr[i].append(j)
+        nbr[j].append(i)
+    dist = np.full((n, n), 99, dtype=np.int64)
+    for s in range(n):
+        dist[s, s] = 0
+        frontier = [s]
+        while frontier:
+            nxt = []
+            for a in frontier:
+                for b in nbr[a]:
+                    if dist[s, b] == 99:
+                        dist[s, b] = dist[s, a] + 1
+                        nxt.append(b)
+            frontier = nxt
+    return nbr, dist
+
+
+def _grow_ligand(rng, n_atoms):
+    """Atom elements, coordinates [n, 3] nm and bonds of a branched tree:
+    heavy atoms first, then hydrogens on free valences."""
+    n_heavy = round(n_atoms * 20 / 47)
+    elems = ["C"] + list(rng.choice(["C", "C", "C", "C", "N", "O"],
+                                    n_heavy - 1))
+    elems += ["H"] * (n_atoms - n_heavy)
+    x = np.zeros((n_atoms, 3))
+    bonds, used = [], np.zeros(n_atoms, dtype=np.int64)
+    for a in range(1, n_atoms):
+        heavy = elems[a] != "H"
+        free = [p for p in range(a) if elems[p] != "H"
+                and used[p] < _ELEMENTS[elems[p]][3] - (1 if heavy else 0)]
+        if not free:
+            free = [p for p in range(a) if elems[p] != "H"
+                    and used[p] < _ELEMENTS[elems[p]][3]]
+        if not free:
+            raise ValueError("ligand tree has no free valence left")
+        parent = int(rng.choice(free))
+        length = 0.15 if heavy else 0.109
+        _, dist = _graph_distances(a, bonds)
+        best, best_score = None, -np.inf
+        for _ in range(200):
+            u = rng.standard_normal(3)
+            cand = x[parent] + length * u / np.linalg.norm(u)
+            score = np.inf
+            for b in range(a):
+                gd = dist[parent, b] + 1       # graph distance child-b
+                if gd <= 2:
+                    need = 0.22 if gd == 2 else 0.0
+                elif gd == 3:
+                    need = 0.25
+                else:
+                    need = 0.28 if "H" in (elems[a], elems[b]) else 0.34
+                score = min(score, np.linalg.norm(cand - x[b]) - need)
+            if score > best_score:
+                best, best_score = cand, score
+            if score >= 0.0:
+                break
+        x[a] = best
+        bonds.append((parent, a))
+        used[parent] += 1
+        used[a] += 1
+    return elems, x, bonds
+
+
+def synthetic_complex(seed: int = 0, n_ligand: int = N_LIGAND,
+                      n_receptor: int = N_RECEPTOR, gap: float = RECEPTOR_GAP,
+                      charge_sd: float = RECEPTOR_CHARGE_SD):
+    """A seeded ligand/receptor complex of the BPMF workload's sizes.
+
+    The real AMBER ligand and receptor files of the benchmark are not in
+    the repository, so this builds their stand-ins (``load_prmtop`` itself
+    is covered by the CPU tests). The ligand is an AMBER-like tree of
+    C/N/O/H atoms: bonds, angles and proper torsions from the bond graph,
+    1-2/1-3/1-4 exclusions and 1-4 pairs scaled by scee 1.2 and scnb 2.0,
+    charges near neutral, coordinates consistent with the bond lengths and
+    spanning about 1 nm. The receptor is a rigid cloud of atoms at protein
+    density (100 atoms/nm^3) in a shell around the ligand, every atom at
+    least ``gap`` nm from every ligand atom, with charges of standard
+    deviation ``charge_sd`` e. The tanh cap bounds a ligand atom's LJ wall at
+    a few to ~80 kJ/mol while the capped Coulomb well reaches thousands,
+    so closer or more strongly charged receptor atoms let replicas fall
+    into those wells ("charge fusion") within one segment.
+
+    Returns (ligand AmberTopology, ligand coords [n, 3] nm,
+    receptor AmberTopology, receptor coords [m, 3] nm).
+    """
+    from openmmgridforce_tpu_torch.mm.amber import AmberTopology
+
+    rng = np.random.default_rng(seed)
+    elems, x, bonds = _grow_ligand(rng, n_ligand)
+    n = n_ligand
+    nbr, dist = _graph_distances(n, bonds)
+    params = np.array([_ELEMENTS[e][:3] for e in elems])
+    charges = np.where(np.array(elems) == "H", 0.12, -0.1) \
+        + 0.15 * rng.standard_normal(n)
+    charges -= charges.mean()
+
+    bond_idx = np.array(bonds, dtype=np.int64)
+    bond_r0 = np.linalg.norm(x[bond_idx[:, 0]] - x[bond_idx[:, 1]], axis=1)
+    has_h = np.array([elems[i] == "H" or elems[j] == "H" for i, j in bonds])
+    bond_k = np.where(has_h, 284512.0, 251040.0)
+
+    angles = [(i, j, k) for j in range(n) for i in nbr[j] for k in nbr[j]
+              if i < k]
+    angle_idx = np.array(angles, dtype=np.int64).reshape(-1, 3)
+    a = x[angle_idx[:, 0]] - x[angle_idx[:, 1]]
+    b = x[angle_idx[:, 2]] - x[angle_idx[:, 1]]
+    angle_t0 = np.arccos(np.clip(
+        (a * b).sum(1) / np.linalg.norm(a, axis=1)
+        / np.linalg.norm(b, axis=1), -1.0, 1.0))
+    angle_k = np.full(len(angles), 418.4)
+
+    torsions = [(i, j, k, l) for j, k in bonds for i in nbr[j] if i != k
+                for l in nbr[k] if l != j]
+    torsion_idx = np.array(torsions, dtype=np.int64).reshape(-1, 4)
+    nt = len(torsions)
+    torsion_k = rng.uniform(0.5, 4.0, nt)
+    torsion_per = rng.integers(1, 4, nt).astype(np.float64)
+    torsion_phase = np.where(rng.random(nt) < 0.5, 0.0, np.pi)
+
+    iu, ju = np.triu_indices(n, k=1)
+    near = dist[iu, ju] <= 3
+    exclusions = [(int(i), int(j)) for i, j in zip(iu[near], ju[near])]
+    is14 = dist[iu, ju] == 3
+    pairs14 = np.stack([iu[is14], ju[is14]], axis=1).astype(np.int64)
+
+    lig = AmberTopology(
+        natom=n, masses=params[:, 0], charges=charges, sigmas=params[:, 1],
+        epsilons=params[:, 2], atom_names=list(elems),
+        residue_labels=["LIG"], residue_pointers=np.array([1]),
+        bond_idx=bond_idx, bond_k=bond_k, bond_r0=bond_r0,
+        angle_idx=angle_idx, angle_k=angle_k, angle_t0=angle_t0,
+        torsion_idx=torsion_idx, torsion_k=torsion_k,
+        torsion_per=torsion_per, torsion_phase=torsion_phase,
+        exclusions=exclusions, pairs14=pairs14,
+        scee=np.full(len(pairs14), 1.2), scnb=np.full(len(pairs14), 2.0))
+
+    # receptor: uniform at protein density in a ball around the ligand,
+    # minus a ``gap`` envelope around every ligand atom
+    center = x.mean(0)
+    r_out = (3.0 * (n_receptor / 100.0 + 4.0) / (4.0 * np.pi)) ** (1 / 3) \
+        + np.linalg.norm(x - center, axis=1).max()
+    rec = np.zeros((0, 3))
+    while len(rec) < n_receptor:
+        u = rng.standard_normal((4 * n_receptor, 3))
+        u *= (r_out * rng.random(len(u)) ** (1 / 3)
+              / np.linalg.norm(u, axis=1))[:, None]
+        cand = center + u
+        dmin = np.linalg.norm(cand[:, None, :] - x[None], axis=2).min(1)
+        rec = np.concatenate([rec, cand[dmin >= gap]])
+    rec = rec[:n_receptor]
+    rel = rng.choice(["C", "C", "N", "O", "H", "H"], n_receptor)
+    rparams = np.array([_ELEMENTS[e][:3] for e in rel])
+    rq = charge_sd * rng.standard_normal(n_receptor)
+    rq -= rq.mean()
+    z2 = np.zeros((0, 2), dtype=np.int64)
+    z = np.zeros(0)
+    receptor = AmberTopology(
+        natom=n_receptor, masses=rparams[:, 0], charges=rq,
+        sigmas=rparams[:, 1], epsilons=rparams[:, 2],
+        atom_names=list(rel), residue_labels=["REC"],
+        residue_pointers=np.array([1]), bond_idx=z2, bond_k=z, bond_r0=z,
+        angle_idx=np.zeros((0, 3), np.int64), angle_k=z, angle_t0=z,
+        torsion_idx=np.zeros((0, 4), np.int64), torsion_k=z,
+        torsion_per=z, torsion_phase=z, exclusions=[], pairs14=z2, scee=z,
+        scnb=z)
+    return lig, x, receptor, rec
+
+
+def grid_box(lig_crd):
+    """Ligand bounds +- MARGIN at SPACING: (counts, origin)."""
+    lo = lig_crd.min(0) - MARGIN
+    counts = tuple(int(c) + 1 for c in
+                   np.ceil((lig_crd.max(0) + MARGIN - lo) / SPACING))
+    return counts, tuple(float(v) for v in lo)
+
+
+# ----------------------------------------------------------------------
+# Phases
+# ----------------------------------------------------------------------
+
+def _cuda_ms(torch, fn, reps):
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    fn()                                   # warm-up
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def phase_device(torch):
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    props = torch.cuda.get_device_properties(0)
+    emit({"phase": "device", "name": torch.cuda.get_device_name(0),
+          "nvidia_smi": smi, "sm_count": props.multi_processor_count,
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "allow_tf32": {"matmul": False, "cudnn": False}})
+    return smi
+
+
+def phase_build():
+    from openmmgridforce_tpu_torch import cuda_build
+
+    t0 = time.perf_counter()
+    built = cuda_build.build()
+    ptxas = {name: [ln.strip() for ln in cuda_build.build_log(name)
+                    .splitlines() if "registers" in ln or "spill" in ln]
+             for name in cuda_build.LIBRARIES}
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "per_library_s": built, "ptxas": ptxas})
+
+
+def phase_kernel_check(torch, rec, rec_crd, counts, origin):
+    """The kernel against its plain twin at the main path's shapes."""
+    from openmmgridforce_tpu_torch.ops.cuda_gridgen import (
+        gridgen_values, gridgen_values_plain)
+    from openmmgridforce_tpu_torch.ops.gridgen import receptor_atoms
+
+    spacing = (SPACING,) * 3
+    n_points = counts[0] * counts[1] * counts[2]
+    per_type = {}
+    for gt in GRID_TYPES:
+        atoms = receptor_atoms(gt, rec_crd, rec.charges, rec.sigmas,
+                               rec.epsilons, device="cuda")
+        args = (atoms, counts, spacing, origin, gt, GRID_CAP)
+        got = gridgen_values(*args)
+        ref = gridgen_values_plain(*args)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        scale = float(ref.abs().max())
+        ms = _cuda_ms(torch, lambda: gridgen_values(*args), 5)
+        plain_ms = _cuda_ms(torch, lambda: gridgen_values_plain(*args), 1)
+        pairs = n_points * atoms.shape[0]
+        bounds = {"fp32": pairs * GRIDGEN_OPS_PER_PAIR[gt] / H100_FP32_FLOPS,
+                  "mufu": pairs / H100_MUFU_PER_S,
+                  "bytes": (atoms.numel() + n_points) * 4 / H100_BYTES_PER_S}
+        bound_pipe = max(bounds, key=bounds.get)
+        per_type[gt] = {"max_abs_err": err, "max_abs_ref": scale,
+                        "rel_err": err / scale, "ms": ms,
+                        "plain_ms": plain_ms,
+                        "bound_ms": 1e3 * bounds[bound_pipe],
+                        "bound_pipe": bound_pipe, "pairs": pairs,
+                        "gpairs_per_s": pairs / ms / 1e6}
+        del got, ref
+
+    # a grid point exactly on an atom caps at exactly grid_cap
+    on_atom = torch.tensor([[0.1, 0.1, 0.1, 1.0]], device="cuda")
+    cap_val = float(gridgen_values(on_atom, (3, 3, 3), (0.1,) * 3,
+                                   (0.0,) * 3, "ljr", 500.0)[1, 1, 1])
+    emit({"phase": "kernel_check", "kernel": "gridgen_values",
+          "counts": counts, "atoms": int(rec_crd.shape[0]),
+          "per_grid_type": per_type, "cap_on_atom": cap_val})
+    for gt, r in per_type.items():
+        check(r["rel_err"] < 1e-5, f"gridgen {gt}: rel err {r['rel_err']}")
+    check(cap_val == 500.0, f"cap on atom gave {cap_val}, not 500.0")
+    return per_type
+
+
+def _sync(torch, device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def phase_main_path(torch, seed, lig, lig_crd, rec, rec_crd, counts,
+                    origin, n_replicas=N_REPLICAS, n_steps=N_STEPS,
+                    device="cuda"):
+    from openmmgridforce_tpu_torch.grid import InterpolationMethod
+    from openmmgridforce_tpu_torch.mm import (GridBinding, make_md_runner,
+                                              system_from_amber)
+    from openmmgridforce_tpu_torch.ops import gridgen
+    from openmmgridforce_tpu_torch.ops.cuda_gridgen import gridgen_values
+    from openmmgridforce_tpu_torch.ops.packed import (combine_packed_grids,
+                                                      pack_grid)
+    from openmmgridforce_tpu_torch.parallel import (init_replica_states,
+                                                    replica_temperatures)
+
+    spacing = (SPACING,) * 3
+    gridgen_values.launches = 0
+    _sync(torch, device)
+    t0 = time.perf_counter()
+    grids = [gridgen.generate_grid(
+        counts, spacing, origin, gt, rec_crd, rec.charges, rec.sigmas,
+        rec.epsilons, grid_cap=GRID_CAP,
+        interp_method=InterpolationMethod.BSPLINE, device=device)
+        for gt in GRID_TYPES]
+    _sync(torch, device)
+    t_gen = time.perf_counter() - t0
+    launches = gridgen_values.launches
+
+    t0 = time.perf_counter()
+    multi = combine_packed_grids([pack_grid(g) for g in grids])
+    _sync(torch, device)
+    t_pack = time.perf_counter() - t0
+    del grids
+    scaling = torch.as_tensor(np.stack([gridgen.auto_scaling_factors(
+        gt, lig.charges, lig.sigmas, lig.epsilons) for gt in GRID_TYPES]),
+        dtype=torch.float32, device=device)
+    binding = GridBinding(grid=multi, scaling=scaling)
+    system = system_from_amber(lig, dtype=torch.float32, hydrogen_mass=4.0,
+                               device=device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    states = init_replica_states(
+        gen, torch.as_tensor(lig_crd, dtype=torch.float32), system.masses,
+        300.0, n_replicas, device=device)
+    temps = torch.full((n_replicas,), 300.0, device=device)
+
+    warm = make_md_runner(N_WARMUP, dt=0.001, friction=5.0, device=device)
+    states = warm(states, system, [binding], temps)
+    _sync(torch, device)
+    run = make_md_runner(n_steps, dt=0.001, friction=5.0, device=device)
+    t0 = time.perf_counter()
+    states = run(states, system, [binding], temps)
+    _sync(torch, device)
+    t_seg = time.perf_counter() - t0
+
+    finite = bool(torch.isfinite(states.positions).all()
+                  and torch.isfinite(states.velocities).all())
+    t_rep = replica_temperatures(states, system.masses)
+    emit({"phase": "main_path", "counts": counts,
+          "grid_points": counts[0] * counts[1] * counts[2],
+          "ligand_atoms": lig.natom, "receptor_atoms": rec.natom,
+          "replicas": n_replicas, "gridgen_launches": launches,
+          "generate_s": t_gen, "pack_s": t_pack,
+          "fused_table_shape": list(multi.coeffs.shape),
+          "segment_steps": n_steps, "segment_s": t_seg,
+          "steps_per_s": n_steps / t_seg,
+          "replica_steps_per_s": n_steps * n_replicas / t_seg,
+          "finite": finite, "median_T": float(t_rep.median()),
+          "max_T": float(t_rep.max()),
+          "replicas_above_600K": int((t_rep > 600.0).sum())})
+    check(launches >= 3, f"gridgen kernel launched {launches} times")
+    check(finite, "non-finite positions or velocities")
+    check(100.0 < float(t_rep.median()) < 600.0,
+          f"median replica temperature {float(t_rep.median())} K")
+    check(float(t_rep.max()) < 20000.0,
+          f"a replica reached {float(t_rep.max())} K")
+    return system, binding, states, launches
+
+
+def phase_eval_check(torch, lig, system, binding, states, device="cuda"):
+    """energy_and_forces in f32 on the card vs the same pack in f64 on
+    the host, at poses from the final states."""
+    from openmmgridforce_tpu_torch.mm import (GridBinding, energy_and_forces,
+                                              system_from_amber)
+
+    poses = states.positions[:N_EVAL_POSES]
+    e32, f32 = energy_and_forces(system, [binding], poses)
+    _sync(torch, device)
+    multi = binding.grid
+    multi64 = dataclasses.replace(
+        multi, coeffs=multi.coeffs.to("cpu", torch.float64),
+        spacing=multi.spacing.to("cpu", torch.float64),
+        origin=multi.origin.to("cpu", torch.float64))
+    b64 = GridBinding(grid=multi64,
+                      scaling=binding.scaling.to("cpu", torch.float64))
+    sys64 = system_from_amber(lig, dtype=torch.float64, hydrogen_mass=4.0,
+                              device="cpu")
+    e64, f64 = energy_and_forces(sys64, [b64],
+                                 poses.to("cpu", torch.float64))
+    e_err = float((e32.cpu().double() - e64).abs().max())
+    f_err = float((f32.cpu().double() - f64).abs().max())
+    e_scale = float(e64.abs().max())
+    f_scale = float(f64.abs().max())
+    emit({"phase": "eval_check", "poses": N_EVAL_POSES,
+          "max_abs_E": e_scale, "E_err": e_err,
+          "E_rel": e_err / e_scale, "max_abs_F": f_scale, "F_err": f_err,
+          "F_rel": f_err / f_scale})
+    check(e_err < 1e-4 * e_scale, f"energy rel err {e_err / e_scale}")
+    check(f_err < 1e-4 * f_scale, f"force rel err {f_err / f_scale}")
+
+
+def phase_step_profile(torch, system, binding, states, n_steps=20):
+    """Where an eager MD step's time goes: torch.profiler over a short
+    window of the main path's runner, kernels summed by name."""
+    from openmmgridforce_tpu_torch.mm import make_md_runner
+
+    run = make_md_runner(n_steps, dt=0.001, friction=5.0, device="cuda")
+    temps = torch.full((states.positions.shape[0],), 300.0, device="cuda")
+    run(states, system, [binding], temps)                 # warm-up
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        run(states, system, [binding], temps)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    by_name, n_kernels, busy_us = {}, 0, 0.0
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = ev.time_range.elapsed_us()
+        n_kernels += 1
+        busy_us += us
+        by_name[ev.name] = by_name.get(ev.name, 0.0) + us
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    emit({"phase": "step_profile", "steps": n_steps,
+          "profiled_wall_ms_per_step": wall_us / n_steps / 1e3,
+          "device_ms_per_step": (busy_us / n_steps / 1e3
+                                 if n_kernels else "not measured"),
+          "device_busy_share": busy_us / wall_us if n_kernels else None,
+          "device_ops_per_step": n_kernels / n_steps,
+          "top_device_ms_per_step": {name[:80]: us / n_steps / 1e3
+                                     for name, us in top}})
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--seed", type=int, default=0)
+    args = parser.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    # outside a checkout of the repository this fails before any output
+    import openmmgridforce_tpu_torch  # noqa: F401
+
+    smi = phase_device(torch)
+    phase_build()
+
+    lig, lig_crd, rec, rec_crd = synthetic_complex(args.seed)
+    counts, origin = grid_box(lig_crd)
+    per_type = phase_kernel_check(torch, rec, rec_crd, counts, origin)
+    system, binding, states, launches = phase_main_path(
+        torch, args.seed, lig, lig_crd, rec, rec_crd, counts, origin)
+    phase_eval_check(torch, lig, system, binding, states)
+    phase_step_profile(torch, system, binding, states)
+
+    emit({"kernels": [{
+        "name": "gridgen_values", "route": "cuda",
+        "source": "openmmgridforce_tpu_torch/csrc/gridgen_values.cu",
+        "replaces": "openmmgridforce_tpu/ops/pallas_gridgen.py:39",
+        "launches": launches,
+        "max_abs_err": max(r["max_abs_err"] for r in per_type.values()),
+        "ms": sum(r["ms"] for r in per_type.values()),
+        "plain_ms": sum(r["plain_ms"] for r in per_type.values()),
+        "bound_ms": sum(r["bound_ms"] for r in per_type.values()),
+        "bound_by": ("bytes" if all(r["bound_pipe"] == "bytes"
+                                    for r in per_type.values())
+                     else "operations"),
+        "library_ms": None}]})
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

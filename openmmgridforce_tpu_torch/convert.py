@@ -1,0 +1,104 @@
+"""Build the port's objects from plain arrays of the JAX package's state.
+
+Each function takes numpy arrays (``np.asarray`` of the JAX leaves) plus
+the static fields, and returns the port's object on ``device``. JAX PRNG
+keys are not carried over: a state gets a fresh ``torch.Generator``
+seeded with ``seed``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .device import resolve_device
+from .grid import Grid
+from .mm.integrators import MDState
+from .mm.system import System
+from .ops.packed import MultiPackedGrid, PackedGrid
+from .ops.pairwise import PairTable
+
+SYSTEM_FIELDS = ("masses", "charges", "sigmas", "epsilons", "bond_idx",
+                 "bond_k", "bond_r0", "angle_idx", "angle_k", "angle_t0",
+                 "torsion_idx", "torsion_k", "torsion_per", "torsion_phase")
+_INDEX_FIELDS = {"bond_idx": 2, "angle_idx": 3, "torsion_idx": 4}
+PAIR_FIELDS = ("qq", "sigma", "epsilon", "mask")
+
+
+def _float(x, dtype, device):
+    return torch.as_tensor(np.array(x), dtype=dtype, device=device)
+
+
+def system_from_arrays(arrays, pairs=None, *, dtype=torch.float64,
+                       device=None) -> System:
+    """``arrays``: mapping of every name in SYSTEM_FIELDS to an array;
+    ``pairs``: None or a mapping of PAIR_FIELDS."""
+    device = resolve_device(device)
+    fields = {}
+    for name in SYSTEM_FIELDS:
+        if name in _INDEX_FIELDS:
+            fields[name] = torch.as_tensor(
+                np.asarray(arrays[name], np.int64), device=device
+            ).reshape(-1, _INDEX_FIELDS[name])
+        else:
+            fields[name] = _float(arrays[name], dtype, device)
+    table = None
+    if pairs is not None:
+        table = PairTable(**{k: _float(pairs[k], dtype, device)
+                             for k in PAIR_FIELDS})
+    return System(pairs=table, **fields)
+
+
+def grid_from_arrays(vals, spacing, origin, *, interp_method=0,
+                     inv_power_mode=0, inv_power=0.0, grid_cap=41840.0,
+                     oob_k=10000.0, grid_type="", dtype=torch.float64,
+                     device=None) -> Grid:
+    device = resolve_device(device)
+    vals = _float(vals, dtype, device)
+    return Grid(vals=vals, spacing=_float(spacing, dtype, device),
+                origin=_float(origin, dtype, device),
+                counts=tuple(int(c) for c in vals.shape),
+                interp_method=int(interp_method),
+                inv_power_mode=int(inv_power_mode),
+                inv_power=float(inv_power), grid_cap=float(grid_cap),
+                oob_k=float(oob_k), grid_type=grid_type)
+
+
+def packed_from_arrays(coeffs, spacing, origin, *, counts, degree,
+                       back_power=0.0, oob_k=0.0, dtype=torch.float64,
+                       device=None) -> PackedGrid:
+    device = resolve_device(device)
+    return PackedGrid(coeffs=_float(coeffs, dtype, device).contiguous(),
+                      spacing=_float(spacing, dtype, device),
+                      origin=_float(origin, dtype, device),
+                      counts=tuple(int(c) for c in counts),
+                      degree=int(degree), back_power=float(back_power),
+                      oob_k=float(oob_k))
+
+
+def multi_packed_from_arrays(coeffs, spacing, origin, *, counts, degree,
+                             n_grids, back_powers, oob_k=0.0,
+                             dtype=torch.float64,
+                             device=None) -> MultiPackedGrid:
+    """Accepts the JAX package's lane-padded fused table and keeps its
+    first G*K columns."""
+    device = resolve_device(device)
+    width = int(n_grids) * int(degree) ** 3
+    coeffs = np.asarray(coeffs)[:, :width]
+    return MultiPackedGrid(
+        coeffs=_float(coeffs, dtype, device).contiguous(),
+        spacing=_float(spacing, dtype, device),
+        origin=_float(origin, dtype, device),
+        counts=tuple(int(c) for c in counts), degree=int(degree),
+        n_grids=int(n_grids),
+        back_powers=tuple(float(b) for b in back_powers),
+        oob_k=float(oob_k))
+
+
+def states_from_arrays(positions, velocities, *, seed: int,
+                       dtype=torch.float64, device=None) -> MDState:
+    device = resolve_device(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(seed))
+    return MDState(_float(positions, dtype, device),
+                   _float(velocities, dtype, device), gen)

@@ -1,0 +1,189 @@
+"""System: masses, bonded terms and the intra-ligand pair table, plus the
+total energy/force function and the MD segment runner.
+
+All terms act on positions [..., N, 3]; replicas are a leading [R]
+dimension.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..grid import Grid
+from ..ops.packed import (MultiPackedGrid, PackedGrid, evaluate_multi,
+                          evaluate_packed)
+from ..ops.pairwise import PairTable, build_pair_table, pair_energy_forces
+from .amber import AmberTopology
+from .forcefield import bonded_energy, bonded_energy_forces
+from .integrators import make_langevin_step, run_segment
+
+
+@dataclasses.dataclass(frozen=True)
+class System:
+    masses: torch.Tensor          # [N] amu
+    charges: torch.Tensor         # [N] e
+    sigmas: torch.Tensor          # [N] nm
+    epsilons: torch.Tensor        # [N] kJ/mol
+    bond_idx: torch.Tensor        # [B, 2] int64
+    bond_k: torch.Tensor
+    bond_r0: torch.Tensor
+    angle_idx: torch.Tensor       # [A, 3]
+    angle_k: torch.Tensor
+    angle_t0: torch.Tensor
+    torsion_idx: torch.Tensor     # [T, 4]
+    torsion_k: torch.Tensor
+    torsion_per: torch.Tensor
+    torsion_phase: torch.Tensor
+    pairs: Optional[PairTable] = None
+
+
+def system_from_amber(top: AmberTopology, dtype=torch.float64,
+                      hydrogen_mass: Optional[float] = None,
+                      constraints: Optional[str] = None,
+                      device=None) -> System:
+    """Build a System from a parsed AMBER topology, on ``device``.
+
+    ``hydrogen_mass``: if set, repartition hydrogen masses to this value,
+    subtracting the difference from the bonded heavy atom (OpenMM's
+    hydrogenMass option).
+    """
+    device = resolve_device(device)
+    if constraints is not None:
+        raise NotImplementedError(
+            "constraints are not ported yet (ROADMAP: mm/constraints.py)")
+    masses = np.array(top.masses, dtype=float)
+    if hydrogen_mass is not None:
+        is_h = masses < 2.0  # hydrogens (and extra points excluded: mass 0)
+        is_h &= masses > 0.0
+        for (i, j) in top.bond_idx:
+            hi, heavy = (i, j) if is_h[i] and not is_h[j] else \
+                ((j, i) if is_h[j] and not is_h[i] else (None, None))
+            if hi is not None:
+                delta = hydrogen_mass - masses[hi]
+                masses[hi] += delta
+                masses[heavy] -= delta
+
+    exceptions = []
+    for p, (i, j) in enumerate(top.pairs14):
+        qq = top.charges[i] * top.charges[j] / top.scee[p]
+        sg = 0.5 * (top.sigmas[i] + top.sigmas[j])
+        ep = np.sqrt(top.epsilons[i] * top.epsilons[j]) / top.scnb[p]
+        exceptions.append((int(i), int(j), qq, sg, ep))
+    pairs = build_pair_table(top.charges, top.sigmas, top.epsilons,
+                             exclusions=sorted(set(top.exclusions)),
+                             exceptions=exceptions, dtype=dtype,
+                             device=device)
+
+    def arr(x):
+        return torch.as_tensor(np.asarray(x, np.float64), dtype=dtype,
+                               device=device)
+
+    def iarr(x):
+        return torch.as_tensor(np.asarray(x, np.int64), device=device)
+
+    return System(
+        masses=arr(masses),
+        charges=arr(top.charges),
+        sigmas=arr(top.sigmas),
+        epsilons=arr(top.epsilons),
+        bond_idx=iarr(top.bond_idx).reshape(-1, 2),
+        bond_k=arr(top.bond_k),
+        bond_r0=arr(top.bond_r0),
+        angle_idx=iarr(top.angle_idx).reshape(-1, 3),
+        angle_k=arr(top.angle_k),
+        angle_t0=arr(top.angle_t0),
+        torsion_idx=iarr(top.torsion_idx).reshape(-1, 4),
+        torsion_k=arr(top.torsion_k),
+        torsion_per=arr(top.torsion_per),
+        torsion_phase=arr(top.torsion_phase),
+        pairs=pairs,
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class GridBinding:
+    """A packed grid plus the per-atom scaling factors that couple atoms to
+    it: [N] for a PackedGrid, [G, N] for a MultiPackedGrid."""
+
+    grid: object          # PackedGrid | MultiPackedGrid
+    scaling: torch.Tensor
+
+
+def _eval_grid(grid, positions, scaling):
+    if isinstance(grid, MultiPackedGrid):
+        return evaluate_multi(grid, positions, scaling)  # scaling [G, N]
+    if isinstance(grid, PackedGrid):
+        return evaluate_packed(grid, positions, scaling)
+    if isinstance(grid, Grid):
+        raise NotImplementedError(
+            "evaluating an unpacked Grid (interpolate.evaluate_grid) is not "
+            "ported yet (ROADMAP: Queue A item 9); pack it with pack_grid")
+    raise NotImplementedError(
+        f"{type(grid).__name__} evaluation is not ported yet (ROADMAP: "
+        "Hermite packs, Queue A item 9)")
+
+
+def grid_energy(grids: Sequence[GridBinding], positions):
+    """Total grid energy of the bindings (no bonded/pair terms)."""
+    e = 0.0
+    for gb in grids:
+        e = e + _eval_grid(gb.grid, positions, gb.scaling).energy
+    return e
+
+
+def potential_energy(system: System, grids: Sequence[GridBinding],
+                     positions):
+    """Total potential energy (differentiable with torch.autograd)."""
+    e = bonded_energy(positions, system)
+    if system.pairs is not None:
+        e = e + pair_energy_forces(system.pairs, positions)[0]
+    for gb in grids:
+        e = e + _eval_grid(gb.grid, positions, gb.scaling).energy
+    return e
+
+
+def energy_and_forces(system: System, grids: Sequence[GridBinding],
+                      positions):
+    """Total energy [...] and forces [..., N, 3], all in closed form."""
+    energy, forces = bonded_energy_forces(positions, system)
+    if system.pairs is not None:
+        e_p, f_p = pair_energy_forces(system.pairs, positions)
+        energy = energy + e_p
+        forces = forces + f_p
+    for gb in grids:
+        res = _eval_grid(gb.grid, positions, gb.scaling)
+        energy = energy + res.energy
+        forces = forces + res.forces
+    return energy, forces
+
+
+def make_md_runner(n_steps: int, dt: float, friction: float, device=None):
+    """Build an MD segment runner for replica states on ``device``.
+
+    Returns ``run(states, system, grids, temperatures, noise=None)``:
+    ``states`` are [R, N, 3], ``temperatures`` a number or [R] (replica
+    ladders), ``noise`` None (drawn from the states' generator) or
+    [n_steps, R, N, 3].
+    """
+    device = resolve_device(device)
+
+    def run(states, system, grids, temperatures, noise=None):
+        if states.positions.device != device:
+            raise ValueError(f"states are on {states.positions.device}, the "
+                             f"runner on {device}")
+        x = states.positions
+        t = torch.as_tensor(temperatures, dtype=x.dtype, device=device)
+        t = t.expand(x.shape[0])[:, None, None]
+
+        def force_fn(pos):
+            return energy_and_forces(system, grids, pos)[1]
+
+        step = make_langevin_step(force_fn, system.masses, dt, friction, t)
+        return run_segment(step, states, n_steps, noise=noise)
+
+    return run

@@ -1,0 +1,133 @@
+"""Capped grid-field values: the hand-written CUDA kernel and its plain twin.
+
+Replaces the Pallas kernel ``openmmgridforce_tpu/ops/pallas_gridgen.py``
+(``_gen_kernel``). The kernel is ``csrc/gridgen_values.cu``; its source
+note gives the bound and the design.
+
+``gridgen_values`` is the wrapper: a CPU tensor goes to the plain twin, a
+CUDA float32 tensor to the kernel, anything else raises. Its
+``launches`` attribute counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from .chain_rules import tanh_cap_value
+from .radial import GRID_TYPE_CODES
+
+_PAIR_BLOCK = 1 << 24   # points x atoms per chunk of the plain twin
+
+
+def grid_point_positions(counts, spacing, origin, flat_index):
+    """Positions [..., 3] of grid points given flat (z-fastest) indices,
+    formed as the kernel forms them: origin + index * spacing in the dtype
+    of ``spacing``."""
+    _, ny, nz = counts
+    nyz = ny * nz
+    i = flat_index // nyz
+    rem = flat_index - i * nyz
+    j = rem // nz
+    k = rem - j * nz
+    return origin + torch.stack([i, j, k], dim=-1) * spacing
+
+
+def gridgen_values_plain(atoms, counts, spacing, origin, grid_type: str,
+                         grid_cap: float, pair_block: int = _PAIR_BLOCK):
+    """Plain PyTorch version of the kernel, chunked over points.
+
+    ``atoms``: [A, 4] rows (x, y, z, K). Returns [nx, ny, nz] in the dtype
+    of ``atoms``, on its device.
+    """
+    code = GRID_TYPE_CODES[grid_type]
+    counts = tuple(int(c) for c in counts)
+    total = counts[0] * counts[1] * counts[2]
+    dtype, device = atoms.dtype, atoms.device
+    spacing = torch.tensor(spacing, dtype=dtype, device=device)
+    origin = torch.tensor(origin, dtype=dtype, device=device)
+    out = torch.empty(total, dtype=dtype, device=device)
+    ax, ay, az, K = (atoms[:, c] for c in range(4))
+    chunk = max(1, pair_block // max(1, atoms.shape[0]))
+    for start in range(0, total, chunk):
+        stop = min(start + chunk, total)
+        idx = torch.arange(start, stop, dtype=torch.int64, device=device)
+        gx, gy, gz = grid_point_positions(counts, spacing, origin,
+                                          idx).unbind(-1)
+        dx = gx[:, None] - ax
+        dy = gy[:, None] - ay
+        dz = gz[:, None] - az
+        r2 = (dx * dx + dy * dy + dz * dz).clamp_min(1e-12)
+        inv_r = torch.rsqrt(r2)
+        if code == 0:       # charge: K / r
+            contrib = K * inv_r
+        elif code == 1:     # ljr: K / r^12
+            inv_r2 = inv_r * inv_r
+            inv_r4 = inv_r2 * inv_r2
+            contrib = K * (inv_r4 * inv_r4 * inv_r4)
+        else:               # lja: K / r^6
+            inv_r2 = inv_r * inv_r
+            contrib = K * (inv_r2 * inv_r2 * inv_r2)
+        out[start:stop] = tanh_cap_value(contrib.sum(-1), grid_cap)
+    return out.reshape(counts)
+
+
+@functools.cache
+def _library():
+    """The kernel's shared library, built at first use, with its C entry
+    points declared."""
+    from .. import cuda_build
+
+    lib = cuda_build.load("gridgen_values")
+    fn = lib.gridgen_values_launch
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+                   + [ctypes.c_int] * 3 + [ctypes.c_float] * 7
+                   + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    lib.gridgen_values_error_string.argtypes = [ctypes.c_int]
+    lib.gridgen_values_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def gridgen_values(atoms, counts, spacing, origin, grid_type: str,
+                   grid_cap: float):
+    """Capped field values [nx, ny, nz] of the atoms [A, 4] (x, y, z, K).
+
+    CPU tensors take the plain twin; CUDA float32 tensors take the kernel.
+    """
+    if atoms.ndim != 2 or atoms.shape[1] != 4:
+        raise ValueError(f"atoms must be [A, 4], got {tuple(atoms.shape)}")
+    if grid_type not in GRID_TYPE_CODES:
+        raise ValueError(f"unknown grid type {grid_type!r}")
+    if atoms.device.type == "cpu":
+        return gridgen_values_plain(atoms, counts, spacing, origin,
+                                    grid_type, grid_cap)
+    if atoms.device.type != "cuda":
+        raise ValueError(f"no gridgen kernel for device {atoms.device}")
+    if atoms.dtype != torch.float32:
+        raise NotImplementedError(
+            f"the CUDA gridgen kernel takes float32, got {atoms.dtype} "
+            "(float64 on CUDA: ROADMAP, Queue A)")
+    if not atoms.is_contiguous() or atoms.data_ptr() % 16:
+        raise ValueError("atoms must be contiguous and 16-byte aligned")
+    counts = tuple(int(c) for c in counts)
+    if min(counts) < 1 or atoms.shape[0] > 2**31 - 1:
+        raise ValueError(f"bad grid counts {counts} or atom count")
+    lib = _library()
+    out = torch.empty(counts, dtype=torch.float32, device=atoms.device)
+    stream = torch.cuda.current_stream(atoms.device).cuda_stream
+    err = lib.gridgen_values_launch(
+        atoms.data_ptr(), atoms.shape[0], out.data_ptr(), *counts,
+        *(float(o) for o in origin), *(float(s) for s in spacing),
+        float(grid_cap), GRID_TYPE_CODES[grid_type], atoms.device.index,
+        stream)
+    if err:
+        raise RuntimeError("gridgen_values kernel launch failed: "
+                           + lib.gridgen_values_error_string(err).decode())
+    gridgen_values.launches += 1
+    return out
+
+
+gridgen_values.launches = 0

@@ -1,0 +1,125 @@
+"""Port packing and packed evaluation (openmmgridforce_tpu_torch.ops.packed)
+vs the JAX package at float64."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from openmmgridforce_tpu.grid import Grid as JGrid
+from openmmgridforce_tpu.ops import packed as jpacked
+from openmmgridforce_tpu_torch import convert
+from openmmgridforce_tpu_torch.ops import packed
+
+torch.set_num_threads(1)
+
+COUNTS = (7, 8, 9)
+SPACING = (0.1, 0.12, 0.09)
+ORIGIN = (-0.3, 0.1, 0.2)
+
+
+def _grids(seed, method, mode, positive=False):
+    rng = np.random.default_rng(seed)
+    vals = rng.standard_normal(COUNTS) * 50.0
+    if positive:
+        vals = np.abs(vals) + 1.0
+    kw = dict(interp_method=method, inv_power_mode=mode,
+              inv_power=3.0 if mode else 0.0, oob_k=500.0)
+    jg = JGrid.create(vals, SPACING, ORIGIN, dtype=jnp.float64, **kw)
+    tg = convert.grid_from_arrays(vals, SPACING, ORIGIN, device="cpu", **kw)
+    return jg, tg
+
+
+def _positions(seed, lead=()):
+    """Atoms inside the box, plus some outside on every side."""
+    rng = np.random.default_rng(seed)
+    lo = np.asarray(ORIGIN)
+    hi = lo + np.asarray(SPACING) * (np.asarray(COUNTS) - 1)
+    return rng.uniform(lo - 0.15, hi + 0.15, lead + (23, 3))
+
+
+@pytest.mark.parametrize("method", [0, 1])
+@pytest.mark.parametrize("mode", [0, 1, 2])
+def test_pack_grid_matches_jax(method, mode):
+    jg, tg = _grids(10 + 3 * method + mode, method, mode, positive=True)
+    ref = jpacked.pack_grid(jg)
+    got = packed.pack_grid(tg)
+    assert got.degree == ref.degree and got.back_power == ref.back_power
+    r = np.asarray(ref.coeffs)
+    np.testing.assert_allclose(got.coeffs.numpy(), r, rtol=1e-12,
+                               atol=1e-12 * np.abs(r).max())
+
+
+def _scaling(seed, n=23):
+    s = np.random.default_rng(seed).uniform(-1.0, 1.0, n)
+    s[::5] = 0.0                                  # zero scalings included
+    return s
+
+
+@pytest.mark.parametrize("method,mode", [(0, 0), (1, 0), (1, 1), (1, 2)])
+def test_evaluate_packed_matches_jax(method, mode):
+    jg, tg = _grids(20 + mode, method, mode, positive=mode != 0)
+    ref_p = jpacked.pack_grid(jg)
+    got_p = packed.pack_grid(tg)
+    x = _positions(21, lead=(3,))
+    s = _scaling(22)
+    got = packed.evaluate_packed(got_p, torch.from_numpy(x), s)
+    for r in range(x.shape[0]):
+        ref = jpacked.evaluate_packed(ref_p, jnp.asarray(x[r]), s)
+        one = packed.evaluate_packed(got_p, torch.from_numpy(x[r]), s)
+        for a, b, c in zip(got, ref, one):
+            np.testing.assert_allclose(a[r].numpy(), np.asarray(b),
+                                       rtol=1e-10, atol=1e-10)
+            np.testing.assert_array_equal(a[r].numpy(), c.numpy())
+
+
+def test_evaluate_multi_matches_jax():
+    """Fused charge/ljr/lja-like set with one STORED inv-power grid,
+    atoms outside the box and zero scalings; the JAX fused table is
+    lane-padded and converted."""
+    pairs = [_grids(30, 1, 0), _grids(31, 1, 2, positive=True),
+             _grids(32, 1, 0)]
+    ref_m = jpacked.combine_packed_grids([jpacked.pack_grid(j)
+                                          for j, _ in pairs])
+    got_m = packed.combine_packed_grids([packed.pack_grid(t)
+                                         for _, t in pairs])
+    conv = convert.multi_packed_from_arrays(
+        np.asarray(ref_m.coeffs), np.asarray(ref_m.spacing),
+        np.asarray(ref_m.origin), counts=ref_m.counts, degree=ref_m.degree,
+        n_grids=ref_m.n_grids, back_powers=ref_m.back_powers,
+        oob_k=ref_m.oob_k, device="cpu")
+    assert got_m.coeffs.shape == (np.prod(np.asarray(COUNTS) - 1), 192)
+    np.testing.assert_allclose(got_m.coeffs.numpy(), conv.coeffs.numpy(),
+                               rtol=1e-12, atol=1e-12)
+    x = _positions(33, lead=(4,))
+    s = np.stack([_scaling(34), _scaling(35), _scaling(36)])
+    got = packed.evaluate_multi(got_m, torch.from_numpy(x), s)
+    for r in range(x.shape[0]):
+        ref = jpacked.evaluate_multi(ref_m, jnp.asarray(x[r]), s)
+        one = packed.evaluate_multi(conv, torch.from_numpy(x[r]), s)
+        for a, b, c in zip(got, ref, one):
+            np.testing.assert_allclose(a[r].numpy(), np.asarray(b),
+                                       rtol=1e-10, atol=1e-10)
+            np.testing.assert_allclose(c.numpy(), a[r].numpy(),
+                                       rtol=1e-12, atol=1e-12)
+
+
+def test_packed_from_arrays_round_trip():
+    jg, tg = _grids(40, 1, 0)
+    ref = jpacked.pack_grid(jg)
+    conv = convert.packed_from_arrays(
+        np.asarray(ref.coeffs), np.asarray(ref.spacing),
+        np.asarray(ref.origin), counts=ref.counts, degree=ref.degree,
+        back_power=ref.back_power, oob_k=ref.oob_k, device="cpu")
+    x = torch.from_numpy(_positions(41))
+    s = _scaling(42)
+    a = packed.evaluate_packed(conv, x, s)
+    b = packed.evaluate_packed(packed.pack_grid(tg), x, s)
+    np.testing.assert_allclose(a.forces.numpy(), b.forces.numpy(),
+                               rtol=1e-12, atol=1e-12)
+
+
+def test_hermite_methods_raise():
+    _, tg = _grids(50, 2, 0)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        packed.pack_grid(tg)
