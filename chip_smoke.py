@@ -1,12 +1,16 @@
 #!/usr/bin/env python
 """End-to-end check of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives the port's main path (openmmgridforce_tpu_torch) at full width:
-receptor grids from the hand-written gridgen kernel, cubic B-spline packing
-and fusion, and a 1000-step classic-Langevin segment of 1000 ligand
-replicas. Every phase prints one JSON line; the last line is
-{"ok": true, "device": {...}}. Any failed gate raises and the script exits
-non-zero. Without a CUDA device it exits non-zero and prints no result.
+Drives the port's two paths (openmmgridforce_tpu_torch) at full width, each
+a 1000-step classic-Langevin segment of 1000 ligand replicas on three fused
+receptor grids: the value path (grids from the hand-written values kernel,
+cubic B-spline packs) and the derivative path (grids with 27 derivatives
+from the hand-written derivative kernel and the chain rules, triquintic
+Chebyshev packs, Hermite-row packs beside them). Both kernels are built
+from the checkout and held against their plain PyTorch twins first. Every
+phase prints one JSON line; the last line is {"ok": true, "device": {...}}.
+Any failed gate raises and the script exits non-zero. Without a CUDA device
+it exits non-zero and prints no result.
 
     python3 chip_smoke.py [--seed N]
 
@@ -18,6 +22,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -45,6 +50,21 @@ H100_MUFU_PER_S = H100_FP32_FLOPS / 16
 # 5 for r^2, the clamp, the rsqrt, the power (0, 4 or 3 multiplies), the
 # multiply by K and the add into the sum
 GRIDGEN_OPS_PER_PAIR = {"charge": 12, "ljr": 16, "lja": 15}
+# FP32 operations per pair that the derivative kernel's function needs,
+# every multiply, add, subtract and max counted once (an FMA is two), with
+# the work shared: 3 for the displacement, 6 for the clamped r^2, 0 / 4 / 3
+# multiplies for 1/r^m by squaring, 1 for K / r^m, 6 for K / r^(m+n) with
+# n = 1..6, 15 for the cascade combinations (each folds to one constant of
+# the grid type times K / r^(m+n)), 6 direction cosines and squares, 81
+# for the 27 terms with every direction product formed once, and 27 to add
+# them in. tests/test_torch_package.py holds a formulation of exactly this
+# cost against the plain twin's values and traces its operations against
+# this table. The kernel and its twin do not share the cascade: as written
+# they cost 287 / 298 / 292.
+DERIVS_OPS_PER_PAIR = {"charge": 145, "ljr": 149, "lja": 148}
+N_DERIV_SLOTS = 27
+DERIV_CHECK_PLANES = 3   # x-planes at each of the grid's start, middle, end
+FAR_FIELD = 0.3          # nm from every receptor atom
 
 # element -> (mass amu, sigma nm, epsilon kJ/mol, valence)
 _ELEMENTS = {"C": (12.011, 0.34, 0.36, 4), "N": (14.007, 0.325, 0.71, 3),
@@ -286,6 +306,13 @@ def phase_build():
              for name in cuda_build.LIBRARIES}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_library_s": built, "ptxas": ptxas})
+    for name, lines in ptxas.items():
+        check(any("registers" in ln for ln in lines),
+              f"{name}: ptxas reported no register count")
+        for ln in lines:
+            spilled = re.findall(r"(\d+) bytes spill", ln)
+            check(all(int(b) == 0 for b in spilled),
+                  f"{name} spills registers: {ln}")
 
 
 def phase_kernel_check(torch, rec, rec_crd, counts, origin):
@@ -334,46 +361,166 @@ def phase_kernel_check(torch, rec, rec_crd, counts, origin):
     return per_type
 
 
+def _slot_err(got, ref, rows=None):
+    """Per derivative slot, max |got - ref| over max |ref| (over ``rows``
+    when given); returns the [27] ratios as float64."""
+    if rows is not None:
+        got, ref = got[rows], ref[rows]
+    num = (got.double() - ref.double()).abs().amax(0)
+    return num / ref.double().abs().amax(0).clamp_min(1e-300)
+
+
+def phase_kernel_check_derivs(torch, rec, rec_crd, counts, origin):
+    """The derivative kernel against its plain twin at the main path's
+    atoms and grid: the float32 twin over the whole grid, the float64 twin
+    over slabs of x-planes at the grid's start, middle and end."""
+    from openmmgridforce_tpu_torch.ops.cuda_gridgen import (
+        grid_point_positions)
+    from openmmgridforce_tpu_torch.ops.cuda_gridgen_derivs import (
+        gridgen_derivs, gridgen_derivs_plain)
+    from openmmgridforce_tpu_torch.ops.gridgen import receptor_atoms
+
+    spacing = (SPACING,) * 3
+    nx, nyz = counts[0], counts[1] * counts[2]
+    n_points = nx * nyz
+    planes = min(DERIV_CHECK_PLANES, nx)
+    starts = sorted({0, (nx - planes) // 2, nx - planes})
+    slabs = [(x0 * nyz, (x0 + planes) * nyz) for x0 in starts]
+    slab_rows = torch.cat([torch.arange(a, b, device="cuda")
+                           for a, b in slabs])
+    xyz = torch.as_tensor(rec_crd, dtype=torch.float32, device="cuda")
+    per_type = {}
+    for gt in GRID_TYPES:
+        atoms = receptor_atoms(gt, rec_crd, rec.charges, rec.sigmas,
+                               rec.epsilons, device="cuda")
+        args = (atoms, counts, spacing, origin, gt)
+        got = gridgen_derivs(*args).reshape(n_points, N_DERIV_SLOTS)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()), f"gridgen_derivs {gt}: "
+              "non-finite output")
+        gridgen_derivs_plain(*args, stop=min(4096, n_points))   # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref32 = gridgen_derivs_plain(*args)
+        torch.cuda.synchronize()
+        plain_ms = 1e3 * (time.perf_counter() - t0)
+        ref64 = torch.cat([gridgen_derivs_plain(atoms.double(), *args[1:],
+                                                start=a, stop=b)
+                           for a, b in slabs])
+        # points of the slabs farther than FAR_FIELD from every atom
+        pts = grid_point_positions(
+            counts, torch.tensor(spacing, device="cuda"),
+            torch.tensor(origin, dtype=torch.float32, device="cuda"),
+            slab_rows)
+        far = torch.cat([(torch.cdist(c, xyz).amin(1) > FAR_FIELD)
+                         for c in pts.split(16384)])
+        err32 = _slot_err(got, ref32)
+        err64 = _slot_err(got[slab_rows], ref64)
+        ms = _cuda_ms(torch, lambda: gridgen_derivs(*args), 3)
+        pairs = n_points * atoms.shape[0]
+        bounds = {"fp32": pairs * DERIVS_OPS_PER_PAIR[gt] / H100_FP32_FLOPS,
+                  "mufu": pairs / H100_MUFU_PER_S,
+                  "bytes": (atoms.numel() + n_points * N_DERIV_SLOTS) * 4
+                  / H100_BYTES_PER_S}
+        bound_pipe = max(bounds, key=bounds.get)
+        per_type[gt] = {
+            "max_abs_err": float((got - ref32).abs().max()),
+            "rel_err_f32": float(err32.max()),
+            "rel_err_f32_slot": int(err32.argmax()),
+            "rel_err_f64": float(err64.max()),
+            "rel_err_f64_slot": int(err64.argmax()),
+            "far_points": int(far.sum()),
+            "far_rel_err_f32": float(_slot_err(got[slab_rows],
+                                               ref32[slab_rows], far).max()),
+            "far_rel_err_f64": float(_slot_err(got[slab_rows], ref64,
+                                               far).max()),
+            "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": 1e3 * bounds[bound_pipe], "bound_pipe": bound_pipe,
+            "pairs": pairs, "gpairs_per_s": pairs / ms / 1e6,
+            "tflops": pairs * DERIVS_OPS_PER_PAIR[gt] / ms / 1e9}
+        del got, ref32, ref64
+    emit({"phase": "kernel_check", "kernel": "gridgen_derivs",
+          "counts": counts, "atoms": int(rec_crd.shape[0]),
+          "f64_slab_points": int(slab_rows.numel()),
+          "per_grid_type": per_type})
+    for gt, r in per_type.items():
+        check(r["rel_err_f32"] < 5e-5, f"gridgen_derivs {gt}: slot "
+              f"{r['rel_err_f32_slot']} is {r['rel_err_f32']} from the "
+              "float32 twin")
+        check(r["rel_err_f64"] < 2e-4, f"gridgen_derivs {gt}: slot "
+              f"{r['rel_err_f64_slot']} is {r['rel_err_f64']} from the "
+              "float64 twin")
+    return per_type
+
+
 def _sync(torch, device):
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
 
 
-def phase_main_path(torch, seed, lig, lig_crd, rec, rec_crd, counts,
-                    origin, n_replicas=N_REPLICAS, n_steps=N_STEPS,
-                    device="cuda"):
+def _reset_launches():
+    from openmmgridforce_tpu_torch.ops.cuda_gridgen import gridgen_values
+    from openmmgridforce_tpu_torch.ops.cuda_gridgen_derivs import (
+        gridgen_derivs)
+
+    gridgen_values.launches = 0
+    gridgen_derivs.launches = 0
+    return gridgen_values, gridgen_derivs
+
+
+def _run_path(torch, phase, seed, lig, lig_crd, rec, rec_crd, counts,
+              origin, n_replicas, n_steps, device, derivatives):
+    """One path of the port from the synthetic complex to final replica
+    states. ``derivatives`` False: value grids, B-spline packs. True:
+    grids with 27 derivatives, triquintic Chebyshev packs, and the
+    Hermite-row packs of the same grids beside them. Returns (system,
+    binding, Hermite-row binding or None, states, launches of the path's
+    kernel)."""
     from openmmgridforce_tpu_torch.grid import InterpolationMethod
     from openmmgridforce_tpu_torch.mm import (GridBinding, make_md_runner,
                                               system_from_amber)
     from openmmgridforce_tpu_torch.ops import gridgen
-    from openmmgridforce_tpu_torch.ops.cuda_gridgen import gridgen_values
-    from openmmgridforce_tpu_torch.ops.packed import (combine_packed_grids,
-                                                      pack_grid)
+    from openmmgridforce_tpu_torch.ops.packed import (
+        combine_hermite_packed, combine_packed_grids, pack_grid,
+        pack_grid_hermite)
     from openmmgridforce_tpu_torch.parallel import (init_replica_states,
                                                     replica_temperatures)
 
     spacing = (SPACING,) * 3
-    gridgen_values.launches = 0
+    method = (InterpolationMethod.TRIQUINTIC if derivatives
+              else InterpolationMethod.BSPLINE)
+    values_kernel, derivs_kernel = _reset_launches()
     _sync(torch, device)
     t0 = time.perf_counter()
     grids = [gridgen.generate_grid(
         counts, spacing, origin, gt, rec_crd, rec.charges, rec.sigmas,
-        rec.epsilons, grid_cap=GRID_CAP,
-        interp_method=InterpolationMethod.BSPLINE, device=device)
+        rec.epsilons, grid_cap=GRID_CAP, compute_derivatives=derivatives,
+        interp_method=method, device=device)
         for gt in GRID_TYPES]
     _sync(torch, device)
     t_gen = time.perf_counter() - t0
-    launches = gridgen_values.launches
 
     t0 = time.perf_counter()
     multi = combine_packed_grids([pack_grid(g) for g in grids])
     _sync(torch, device)
     t_pack = time.perf_counter() - t0
-    del grids
     scaling = torch.as_tensor(np.stack([gridgen.auto_scaling_factors(
         gt, lig.charges, lig.sigmas, lig.epsilons) for gt in GRID_TYPES]),
         dtype=torch.float32, device=device)
     binding = GridBinding(grid=multi, scaling=scaling)
+    hermite, extra = None, {}
+    if derivatives:
+        t0 = time.perf_counter()
+        hermite = GridBinding(grid=combine_hermite_packed(
+            [pack_grid_hermite(g) for g in grids]), scaling=scaling)
+        _sync(torch, device)
+        extra = {"poly_basis": multi.poly_basis,
+                 "hermite_pack_s": time.perf_counter() - t0,
+                 "hermite_table_shape": list(hermite.grid.coeffs.shape),
+                 "finite_grids": all(bool(torch.isfinite(g.derivs).all())
+                                     for g in grids),
+                 "finite_table": bool(torch.isfinite(multi.coeffs).all())}
+    del grids
     system = system_from_amber(lig, dtype=torch.float32, hydrogen_mass=4.0,
                                device=device)
     gen = torch.Generator(device=device)
@@ -391,34 +538,93 @@ def phase_main_path(torch, seed, lig, lig_crd, rec, rec_crd, counts,
     states = run(states, system, [binding], temps)
     _sync(torch, device)
     t_seg = time.perf_counter() - t0
+    launches = {"gridgen_values": values_kernel.launches,
+                "gridgen_derivs": derivs_kernel.launches}
 
     finite = bool(torch.isfinite(states.positions).all()
                   and torch.isfinite(states.velocities).all())
     t_rep = replica_temperatures(states, system.masses)
-    emit({"phase": "main_path", "counts": counts,
+    emit({"phase": phase, "counts": counts,
           "grid_points": counts[0] * counts[1] * counts[2],
           "ligand_atoms": lig.natom, "receptor_atoms": rec.natom,
-          "replicas": n_replicas, "gridgen_launches": launches,
+          "replicas": n_replicas, "interp_method": method.name,
+          "launches": launches,
           "generate_s": t_gen, "pack_s": t_pack,
-          "fused_table_shape": list(multi.coeffs.shape),
+          "fused_table_shape": list(multi.coeffs.shape), **extra,
           "segment_steps": n_steps, "segment_s": t_seg,
           "steps_per_s": n_steps / t_seg,
           "replica_steps_per_s": n_steps * n_replicas / t_seg,
           "finite": finite, "median_T": float(t_rep.median()),
           "max_T": float(t_rep.max()),
           "replicas_above_600K": int((t_rep > 600.0).sum())})
-    check(launches >= 3, f"gridgen kernel launched {launches} times")
+    kernel = "gridgen_derivs" if derivatives else "gridgen_values"
+    if torch.device(device).type == "cuda":
+        check(launches[kernel] >= 3,
+              f"{kernel} kernel launched {launches[kernel]} times")
+    for key in ("finite_grids", "finite_table"):
+        check(extra.get(key, True), f"{phase}: {key} is false")
     check(finite, "non-finite positions or velocities")
     check(100.0 < float(t_rep.median()) < 600.0,
           f"median replica temperature {float(t_rep.median())} K")
     check(float(t_rep.max()) < 20000.0,
           f"a replica reached {float(t_rep.max())} K")
-    return system, binding, states, launches
+    return system, binding, hermite, states, launches[kernel]
 
 
-def phase_eval_check(torch, lig, system, binding, states, device="cuda"):
+def phase_main_path(torch, seed, lig, lig_crd, rec, rec_crd, counts,
+                    origin, n_replicas=N_REPLICAS, n_steps=N_STEPS,
+                    device="cuda"):
+    """The value path: value grids (K1), B-spline packs, the MD segment."""
+    return _run_path(torch, "main_path", seed, lig, lig_crd, rec, rec_crd,
+                     counts, origin, n_replicas, n_steps, device, False)
+
+
+def phase_deriv_path(torch, seed, lig, lig_crd, rec, rec_crd, counts,
+                     origin, n_replicas=N_REPLICAS, n_steps=N_STEPS,
+                     device="cuda"):
+    """The derivative path: triquintic grids (K2 and the chain rules),
+    Chebyshev and Hermite-row packs, the MD segment on the Chebyshev
+    table."""
+    return _run_path(torch, "deriv_path", seed, lig, lig_crd, rec, rec_crd,
+                     counts, origin, n_replicas, n_steps, device, True)
+
+
+def phase_deriv_setup_times(torch, rec, rec_crd, counts, origin):
+    """Where generation's time goes on the derivative path, for one grid
+    (ljr): the kernel, then the per-point chain rules and scaling."""
+    from openmmgridforce_tpu_torch.ops import gridgen
+    from openmmgridforce_tpu_torch.ops.cuda_gridgen_derivs import (
+        gridgen_derivs)
+
+    spacing = (SPACING,) * 3
+    atoms = gridgen.receptor_atoms("ljr", rec_crd, rec.charges, rec.sigmas,
+                                   rec.epsilons, device="cuda")
+    raw = gridgen_derivs(atoms, counts, spacing, origin, "ljr")
+
+    def postprocess():
+        return gridgen._postprocess_raw_derivs(
+            raw, grid_cap=GRID_CAP, inv_power=0.0, inv_power_mode=0,
+            spacing=spacing)
+
+    # device time between CUDA events, after a warm-up call, 3 repeats
+    t_kernel = _cuda_ms(torch, lambda: gridgen_derivs(
+        atoms, counts, spacing, origin, "ljr"), 3) / 1e3
+    t_post = _cuda_ms(torch, postprocess, 3) / 1e3
+    post = postprocess()
+    u = raw[..., 0] / GRID_CAP
+    emit({"phase": "deriv_setup_times", "grid_type": "ljr",
+          "kernel_s": t_kernel, "postprocess_s": t_post, "repeats": 3,
+          "points_passed_through": int((u < 0.1).sum()),
+          "points_capped": int(((u >= 0.1) & (u <= 20.0)).sum()),
+          "points_saturated": int((u > 20.0).sum()),
+          "max_abs_scaled_deriv": float(post.abs().max())})
+
+
+def phase_eval_check(torch, lig, system, binding, states, device="cuda",
+                     phase="eval_check"):
     """energy_and_forces in f32 on the card vs the same pack in f64 on
-    the host, at poses from the final states."""
+    the host, at poses from the final states. Returns the f32 energies
+    and forces."""
     from openmmgridforce_tpu_torch.mm import (GridBinding, energy_and_forces,
                                               system_from_amber)
 
@@ -440,17 +646,41 @@ def phase_eval_check(torch, lig, system, binding, states, device="cuda"):
     f_err = float((f32.cpu().double() - f64).abs().max())
     e_scale = float(e64.abs().max())
     f_scale = float(f64.abs().max())
-    emit({"phase": "eval_check", "poses": N_EVAL_POSES,
-          "max_abs_E": e_scale, "E_err": e_err,
+    emit({"phase": phase, "poses": N_EVAL_POSES,
+          "grid": type(multi).__name__, "max_abs_E": e_scale, "E_err": e_err,
           "E_rel": e_err / e_scale, "max_abs_F": f_scale, "F_err": f_err,
           "F_rel": f_err / f_scale})
     check(e_err < 1e-4 * e_scale, f"energy rel err {e_err / e_scale}")
     check(f_err < 1e-4 * f_scale, f"force rel err {f_err / f_scale}")
+    return e32, f32
 
 
-def phase_step_profile(torch, system, binding, states, n_steps=20):
+def phase_deriv_eval_check(torch, lig, system, binding, hermite, states,
+                           device="cuda"):
+    """The derivative path's two packed forms at the final poses: each in
+    f32 on the card against f64 on the host, and the Chebyshev polynomial
+    pack against the Hermite-row pack of the same grids."""
+    e_c, f_c = phase_eval_check(torch, lig, system, binding, states, device,
+                                phase="deriv_eval_check")
+    e_h, f_h = phase_eval_check(torch, lig, system, hermite, states, device,
+                                phase="deriv_eval_check")
+    e_scale, f_scale = float(e_h.abs().max()), float(f_h.abs().max())
+    e_err = float((e_c - e_h).abs().max())
+    f_err = float((f_c - f_h).abs().max())
+    emit({"phase": "deriv_eval_check", "poses": N_EVAL_POSES,
+          "grid": "chebyshev pack vs Hermite rows, f32 on the card",
+          "max_abs_E": e_scale, "E_err": e_err, "E_rel": e_err / e_scale,
+          "max_abs_F": f_scale, "F_err": f_err, "F_rel": f_err / f_scale})
+    check(e_err < 1e-4 * e_scale, f"forms differ in energy by "
+          f"{e_err / e_scale}")
+    check(f_err < 1e-4 * f_scale, f"forms differ in force by "
+          f"{f_err / f_scale}")
+
+
+def phase_step_profile(torch, system, binding, states, n_steps=20,
+                       phase="step_profile"):
     """Where an eager MD step's time goes: torch.profiler over a short
-    window of the main path's runner, kernels summed by name."""
+    window of a path's runner, kernels summed by name."""
     from openmmgridforce_tpu_torch.mm import make_md_runner
 
     run = make_md_runner(n_steps, dt=0.001, friction=5.0, device="cuda")
@@ -473,7 +703,7 @@ def phase_step_profile(torch, system, binding, states, n_steps=20):
         busy_us += us
         by_name[ev.name] = by_name.get(ev.name, 0.0) + us
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    emit({"phase": "step_profile", "steps": n_steps,
+    emit({"phase": phase, "steps": n_steps,
           "profiled_wall_ms_per_step": wall_us / n_steps / 1e3,
           "device_ms_per_step": (busy_us / n_steps / 1e3
                                  if n_kernels else "not measured"),
@@ -501,25 +731,47 @@ def main(argv=None):
 
     lig, lig_crd, rec, rec_crd = synthetic_complex(args.seed)
     counts, origin = grid_box(lig_crd)
-    per_type = phase_kernel_check(torch, rec, rec_crd, counts, origin)
-    system, binding, states, launches = phase_main_path(
-        torch, args.seed, lig, lig_crd, rec, rec_crd, counts, origin)
+    complex_ = (lig, lig_crd, rec, rec_crd, counts, origin)
+    checks = {
+        "gridgen_values": phase_kernel_check(torch, rec, rec_crd, counts,
+                                             origin),
+        "gridgen_derivs": phase_kernel_check_derivs(torch, rec, rec_crd,
+                                                    counts, origin)}
+    launches = {}
+    system, binding, _, states, launches["gridgen_values"] = \
+        phase_main_path(torch, args.seed, *complex_)
     phase_eval_check(torch, lig, system, binding, states)
     phase_step_profile(torch, system, binding, states)
+    del binding
 
+    system, binding, hermite, states, launches["gridgen_derivs"] = \
+        phase_deriv_path(torch, args.seed, *complex_)
+    phase_deriv_setup_times(torch, rec, rec_crd, counts, origin)
+    phase_deriv_eval_check(torch, lig, system, binding, hermite, states)
+    phase_step_profile(torch, system, binding, states,
+                       phase="deriv_step_profile")
+
+    replaces = {
+        "gridgen_values": "openmmgridforce_tpu/ops/pallas_gridgen.py:39",
+        "gridgen_derivs":
+            "openmmgridforce_tpu/ops/pallas_gridgen_derivs.py:36"}
+    # the gated error of each kernel: max |kernel - plain| over max |plain|
+    # (per derivative slot for gridgen_derivs, whose raw sums reach 1e33)
+    rel_key = {"gridgen_values": "rel_err", "gridgen_derivs": "rel_err_f32"}
     emit({"kernels": [{
-        "name": "gridgen_values", "route": "cuda",
-        "source": "openmmgridforce_tpu_torch/csrc/gridgen_values.cu",
-        "replaces": "openmmgridforce_tpu/ops/pallas_gridgen.py:39",
-        "launches": launches,
+        "name": name, "route": "cuda",
+        "source": f"openmmgridforce_tpu_torch/csrc/{name}.cu",
+        "replaces": replaces[name],
+        "launches": launches[name],
         "max_abs_err": max(r["max_abs_err"] for r in per_type.values()),
+        "max_rel_err": max(r[rel_key[name]] for r in per_type.values()),
         "ms": sum(r["ms"] for r in per_type.values()),
         "plain_ms": sum(r["plain_ms"] for r in per_type.values()),
         "bound_ms": sum(r["bound_ms"] for r in per_type.values()),
         "bound_by": ("bytes" if all(r["bound_pipe"] == "bytes"
                                     for r in per_type.values())
                      else "operations"),
-        "library_ms": None}]})
+        "library_ms": None} for name, per_type in checks.items()]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -12,10 +12,11 @@ import numpy as np
 import torch
 
 from .device import resolve_device
-from .grid import Grid
+from .grid import Grid, InterpolationMethod
 from .mm.integrators import MDState
 from .mm.system import System
-from .ops.packed import MultiPackedGrid, PackedGrid
+from .ops.packed import (HermitePackedGrid, MultiHermitePackedGrid,
+                         MultiPackedGrid, PackedGrid)
 from .ops.pairwise import PairTable
 
 SYSTEM_FIELDS = ("masses", "charges", "sigmas", "epsilons", "bond_idx",
@@ -51,11 +52,18 @@ def system_from_arrays(arrays, pairs=None, *, dtype=torch.float64,
 
 def grid_from_arrays(vals, spacing, origin, *, interp_method=0,
                      inv_power_mode=0, inv_power=0.0, grid_cap=41840.0,
-                     oob_k=10000.0, grid_type="", dtype=torch.float64,
-                     device=None) -> Grid:
+                     oob_k=10000.0, grid_type="", derivs=None,
+                     dtype=torch.float64, device=None) -> Grid:
+    """``derivs``: None or [nx, ny, nz, 27], the JAX Grid's own layout."""
     device = resolve_device(device)
     vals = _float(vals, dtype, device)
-    return Grid(vals=vals, spacing=_float(spacing, dtype, device),
+    if derivs is not None:
+        derivs = _float(derivs, dtype, device)
+        if derivs.shape != vals.shape + (27,):
+            raise ValueError(f"derivs shape {tuple(derivs.shape)} does not "
+                             f"match grid {tuple(vals.shape)} (+27)")
+    return Grid(vals=vals, derivs=derivs,
+                spacing=_float(spacing, dtype, device),
                 origin=_float(origin, dtype, device),
                 counts=tuple(int(c) for c in vals.shape),
                 interp_method=int(interp_method),
@@ -65,20 +73,20 @@ def grid_from_arrays(vals, spacing, origin, *, interp_method=0,
 
 
 def packed_from_arrays(coeffs, spacing, origin, *, counts, degree,
-                       back_power=0.0, oob_k=0.0, dtype=torch.float64,
-                       device=None) -> PackedGrid:
+                       back_power=0.0, oob_k=0.0, poly_basis="monomial",
+                       dtype=torch.float64, device=None) -> PackedGrid:
     device = resolve_device(device)
     return PackedGrid(coeffs=_float(coeffs, dtype, device).contiguous(),
                       spacing=_float(spacing, dtype, device),
                       origin=_float(origin, dtype, device),
                       counts=tuple(int(c) for c in counts),
                       degree=int(degree), back_power=float(back_power),
-                      oob_k=float(oob_k))
+                      oob_k=float(oob_k), poly_basis=poly_basis)
 
 
 def multi_packed_from_arrays(coeffs, spacing, origin, *, counts, degree,
                              n_grids, back_powers, oob_k=0.0,
-                             dtype=torch.float64,
+                             poly_basis="monomial", dtype=torch.float64,
                              device=None) -> MultiPackedGrid:
     """Accepts the JAX package's lane-padded fused table and keeps its
     first G*K columns."""
@@ -90,6 +98,38 @@ def multi_packed_from_arrays(coeffs, spacing, origin, *, counts, degree,
         spacing=_float(spacing, dtype, device),
         origin=_float(origin, dtype, device),
         counts=tuple(int(c) for c in counts), degree=int(degree),
+        n_grids=int(n_grids),
+        back_powers=tuple(float(b) for b in back_powers),
+        oob_k=float(oob_k), poly_basis=poly_basis)
+
+
+def hermite_packed_from_arrays(coeffs, spacing, origin, *, counts, method,
+                               back_power=0.0, oob_k=0.0,
+                               dtype=torch.float64,
+                               device=None) -> HermitePackedGrid:
+    device = resolve_device(device)
+    return HermitePackedGrid(
+        coeffs=_float(coeffs, dtype, device).contiguous(),
+        spacing=_float(spacing, dtype, device),
+        origin=_float(origin, dtype, device),
+        counts=tuple(int(c) for c in counts), method=int(method),
+        back_power=float(back_power), oob_k=float(oob_k))
+
+
+def multi_hermite_packed_from_arrays(coeffs, spacing, origin, *, counts,
+                                     method, n_grids, back_powers,
+                                     oob_k=0.0, dtype=torch.float64,
+                                     device=None) -> MultiHermitePackedGrid:
+    """Accepts the JAX package's lane-padded fused table and keeps its
+    first G*8*D columns."""
+    device = resolve_device(device)
+    slots = 8 if int(method) == InterpolationMethod.TRICUBIC else 27
+    coeffs = np.asarray(coeffs)[:, :int(n_grids) * 8 * slots]
+    return MultiHermitePackedGrid(
+        coeffs=_float(coeffs, dtype, device).contiguous(),
+        spacing=_float(spacing, dtype, device),
+        origin=_float(origin, dtype, device),
+        counts=tuple(int(c) for c in counts), method=int(method),
         n_grids=int(n_grids),
         back_powers=tuple(float(b) for b in back_powers),
         oob_k=float(oob_k))

@@ -27,6 +27,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # library name -> its sources under csrc/
 LIBRARIES = {
     "gridgen_values": ("gridgen_values.cu",),
+    "gridgen_derivs": ("gridgen_derivs.cu",),
 }
 
 

@@ -1,13 +1,16 @@
 """Grid container: one receptor field grid on tensors.
 
 Layout: ``vals`` is [nx, ny, nz] in C order (z fastest), the flat index of
-point (i, j, k) being ``i*ny*nz + j*nz + k``.
+point (i, j, k) being ``i*ny*nz + j*nz + k``; ``derivs`` is
+[nx, ny, nz, 27], derivative-minor, in cell-fractional units (see
+``ops/derivatives27.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import enum
+from typing import Optional
 
 import torch
 
@@ -46,3 +49,4 @@ class Grid:
     grid_cap: float = DEFAULT_GRID_CAP
     oob_k: float = DEFAULT_OOB_K
     grid_type: str = ""
+    derivs: Optional[torch.Tensor] = None   # [nx, ny, nz, 27] or None

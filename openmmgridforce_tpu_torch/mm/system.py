@@ -15,8 +15,11 @@ import torch
 
 from ..device import resolve_device
 from ..grid import Grid
-from ..ops.packed import (MultiPackedGrid, PackedGrid, evaluate_multi,
-                          evaluate_packed)
+from ..ops.interpolate import evaluate_grid
+from ..ops.packed import (HermitePackedGrid, MultiHermitePackedGrid,
+                          MultiPackedGrid, PackedGrid,
+                          evaluate_hermite_multi, evaluate_hermite_packed,
+                          evaluate_multi, evaluate_packed)
 from ..ops.pairwise import PairTable, build_pair_table, pair_energy_forces
 from .amber import AmberTopology
 from .forcefield import bonded_energy, bonded_energy_forces
@@ -107,25 +110,27 @@ def system_from_amber(top: AmberTopology, dtype=torch.float64,
 
 @dataclasses.dataclass(frozen=True)
 class GridBinding:
-    """A packed grid plus the per-atom scaling factors that couple atoms to
-    it: [N] for a PackedGrid, [G, N] for a MultiPackedGrid."""
+    """A grid plus the per-atom scaling factors that couple atoms to it:
+    [N] for a Grid (reference layout, a gather per stencil point), a
+    PackedGrid or a HermitePackedGrid (one row gather per atom), [G, N] for
+    the fused MultiPackedGrid and MultiHermitePackedGrid."""
 
-    grid: object          # PackedGrid | MultiPackedGrid
+    grid: object
     scaling: torch.Tensor
 
 
 def _eval_grid(grid, positions, scaling):
     if isinstance(grid, MultiPackedGrid):
         return evaluate_multi(grid, positions, scaling)  # scaling [G, N]
+    if isinstance(grid, MultiHermitePackedGrid):
+        return evaluate_hermite_multi(grid, positions, scaling)
     if isinstance(grid, PackedGrid):
         return evaluate_packed(grid, positions, scaling)
+    if isinstance(grid, HermitePackedGrid):
+        return evaluate_hermite_packed(grid, positions, scaling)
     if isinstance(grid, Grid):
-        raise NotImplementedError(
-            "evaluating an unpacked Grid (interpolate.evaluate_grid) is not "
-            "ported yet (ROADMAP: Queue A item 9); pack it with pack_grid")
-    raise NotImplementedError(
-        f"{type(grid).__name__} evaluation is not ported yet (ROADMAP: "
-        "Hermite packs, Queue A item 9)")
+        return evaluate_grid(grid, positions, scaling)
+    raise TypeError(f"cannot evaluate a {type(grid).__name__}")
 
 
 def grid_energy(grids: Sequence[GridBinding], positions):

@@ -1,12 +1,23 @@
 """Grid generation: receptor fields sampled on a rectilinear grid.
 
-The values branch of the JAX module: sum the fields of all receptor atoms
-at every grid point, tanh-cap the sum, and apply the inverse-power storage
-transform when one is configured. The input's device decides the route: a
-CUDA float32 run goes through the hand-written kernel
-(``ops/cuda_gridgen.py``), a CPU run through its plain twin. Generation
-with 27 analytic derivatives waits for the derivative slice (ROADMAP,
-Queue A item 8 and kernel K2 in Queue B).
+Two pipelines, in the JAX module's order of operations:
+
+  values only:  sum the fields of all receptor atoms at every grid point
+                -> tanh cap -> inverse-power storage transform when one is
+                configured (for any mode but NONE);
+  derivatives:  sum the 27 Cartesian derivatives -> exact tanh chain rule
+                -> inverse-power chain rule if STORED -> scale to
+                cell-fractional units. ``vals`` is then slot 0 of
+                ``derivs``; it differs from the values-only path below
+                0.1 cap (the chain rule's passthrough) and in the clamp.
+
+The device decides the route. A CUDA float32 run goes through the
+hand-written kernels: ``ops/cuda_gridgen.py`` for values,
+``ops/cuda_gridgen_derivs.py`` for the raw derivative sums, followed by the
+per-point chain rules here. A CPU run takes the same route with each
+kernel's plain twin in the kernel's place.
+
+Clamps: r >= 1e-6 nm for values, r^2 >= 4e-4 nm^2 for derivatives.
 """
 
 from __future__ import annotations
@@ -18,10 +29,13 @@ from ..device import resolve_device
 from ..grid import Grid, InterpolationMethod, InvPowerMode
 from ..units import DEFAULT_GRID_CAP, DEFAULT_OOB_K, TWO_POW_ONE_SIXTH
 from . import radial
-from .chain_rules import tanh_cap_value
+from .chain_rules import apply_invpower, apply_tanh_cap, tanh_cap_value
 from .cuda_gridgen import grid_point_positions, gridgen_values  # noqa: F401
+from .cuda_gridgen_derivs import gridgen_derivs
+from .derivatives27 import spacing_scale_factors
 
 _R_MIN_VALUES = 1e-6      # nm
+_POST_POINT_CHUNK = 1 << 18   # points per pass of the chain rules
 
 
 def _values_at_points(points, grid_type, positions, charges, sigmas,
@@ -34,6 +48,23 @@ def _values_at_points(points, grid_type, positions, charges, sigmas,
     contrib = radial.field_value(r, grid_type, charges, sigmas, epsilons,
                                  lj_convention)
     return tanh_cap_value(contrib.sum(-1), grid_cap)
+
+
+def _postprocess_raw_derivs(raw, *, grid_cap, inv_power, inv_power_mode,
+                            spacing, point_chunk: int = _POST_POINT_CHUNK):
+    """Cap, transform and scale raw 27-derivative sums [..., 27]: the
+    per-point tail of derivative generation. Runs in chunks of points so
+    the Faa di Bruno temporaries stay small beside a full grid."""
+    scale = torch.as_tensor(spacing_scale_factors(spacing), dtype=raw.dtype,
+                            device=raw.device)
+    flat = raw.reshape(-1, raw.shape[-1])
+    out = torch.empty_like(flat)
+    for lo in range(0, flat.shape[0], point_chunk):
+        V = apply_tanh_cap(flat[lo:lo + point_chunk], grid_cap)
+        if inv_power != 0.0 and inv_power_mode == InvPowerMode.STORED:
+            V = apply_invpower(V, 1.0 / inv_power)
+        out[lo:lo + point_chunk] = V * scale
+    return out.reshape(raw.shape)
 
 
 def receptor_atoms(grid_type, positions, charges, sigmas, epsilons,
@@ -67,32 +98,43 @@ def generate_grid(counts,
                   lj_convention: str = "rmin",
                   dtype=torch.float32,
                   device=None) -> Grid:
-    """Generate one receptor value grid.
+    """Generate one receptor grid, optionally with 27 analytic
+    derivatives.
 
     The per-atom strength K of the chosen grid type and LJ convention is
     computed on the host in float64; the sum over atoms runs on ``device``
-    (the CUDA card by default) in ``dtype``.
+    (the CUDA card by default) in ``dtype``. With ``compute_derivatives``
+    the grid carries ``derivs`` [nx, ny, nz, 27] in cell-fractional units
+    and ``vals`` is their slot 0.
     """
     device = resolve_device(device)
-    if compute_derivatives:
-        raise NotImplementedError(
-            "generation with 27 analytic derivatives is not ported yet "
-            "(ROADMAP: Queue A item 8, kernel K2 in Queue B)")
     if device.type == "cuda" and dtype != torch.float32:
         raise NotImplementedError(
-            f"{dtype} grid generation on CUDA is not ported yet; the kernel "
-            "is float32 (ROADMAP: float64 on CUDA, Queue A)")
+            f"{dtype} grid generation on CUDA is not ported yet; the "
+            "kernels are float32 (ROADMAP: float64 on CUDA, Queue A)")
     counts = tuple(int(c) for c in counts)
+    # the per-atom strength K carries the LJ convention, so one atom table
+    # serves both conventions on either route
     atoms = receptor_atoms(grid_type, receptor_positions, charges, sigmas,
                            epsilons, lj_convention, dtype, device)
-    vals = gridgen_values(atoms, counts, spacing, origin, grid_type,
-                          grid_cap)
-    if inv_power != 0.0 and inv_power_mode != InvPowerMode.NONE:
-        # values-only storage transform; no 1e-10 dead zone on this side
-        sign = torch.where(vals >= 0.0, 1.0, -1.0).to(dtype)
-        vals = sign * vals.abs() ** (1.0 / inv_power)
+    derivs = None
+    if compute_derivatives:
+        raw = gridgen_derivs(atoms, counts, spacing, origin, grid_type)
+        derivs = _postprocess_raw_derivs(
+            raw, grid_cap=grid_cap, inv_power=inv_power,
+            inv_power_mode=inv_power_mode, spacing=spacing)
+        vals = derivs[..., 0]
+    else:
+        vals = gridgen_values(atoms, counts, spacing, origin, grid_type,
+                              grid_cap)
+        if inv_power != 0.0 and inv_power_mode != InvPowerMode.NONE:
+            # values-only storage transform; no 1e-10 dead zone on this
+            # side
+            sign = torch.where(vals >= 0.0, 1.0, -1.0).to(dtype)
+            vals = sign * vals.abs() ** (1.0 / inv_power)
     return Grid(
         vals=vals,
+        derivs=derivs,
         spacing=torch.tensor(spacing, dtype=dtype, device=device),
         origin=torch.tensor(origin, dtype=dtype, device=device),
         counts=counts,

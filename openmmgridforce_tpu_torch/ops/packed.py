@@ -1,19 +1,26 @@
-"""Packed per-cell polynomial grids: one row gather per atom.
+"""Packed per-cell grids: one row gather per atom.
 
-Inside any cell, trilinear and cubic B-spline interpolation evaluate a
-fixed tensor-product polynomial of the cell fraction,
-P(s) = sum c_pqr sx^p sy^q sz^r. The coefficients do not depend on the
-atom position, so ``pack_grid`` computes them once per cell (in float64,
-then cast), and evaluation is one gather of a contiguous row per atom plus
-a few small contractions.
+Inside any cell, every interpolation method evaluates a fixed
+tensor-product polynomial of the cell fraction,
+P(s) = sum c_pqr b_p(sx) b_q(sy) b_r(sz). The coefficients do not depend on
+the atom position, so ``pack_grid`` computes them once per cell, and
+evaluation is one gather of a contiguous row per atom plus a few small
+contractions.
 
-Semantics follow the JAX module exactly: cell index clamped to
-[0, counts-2] and fraction to [0, 1]; an unscaled harmonic restraint for
-atoms outside the box, applied once per fused set; atoms inside the box
-contribute only where their scaling is non-zero; the inverse-power
-back-transform sign(v)|v|^n with its 1e-10 dead zone. The fused table is
-[ncells, G*K], without the TPU's 128-lane padding. Hermite and Chebyshev
-packs and slab-wise packing wait for later slices (ROADMAP).
+Two polynomial bases: monomials v^p, and Chebyshev T_p(2v - 1). Triquintic
+monomial coefficients of steep capped fields reach 1e8-1e10 while cell
+values stay near 1e4, so float32 evaluation of the monomial form loses
+about 1 kJ/mol near receptor cores; Chebyshev coefficients are bounded by
+about max|P| on the cell, at the same evaluation cost. The Hermite-packed
+form (``pack_grid_hermite``) keeps the single row gather too, but stores
+the 8 corners' derivative vectors per cell and evaluates in the bounded
+Hermite basis.
+
+Semantics follow ``ops/interpolate.py`` exactly (same clamping, restraint
+and back-transform; RUNTIME stencil transforms are folded into packing).
+For a fused set the out-of-bounds restraint is applied once. The fused
+tables are [ncells, G*K], without the TPU's 128-lane padding. Slab-wise
+packing waits for a later slice (ROADMAP).
 
 Positions may carry any leading batch dimensions, [..., N, 3] (replicas
 are [R, N, 3]); per-atom scalings are shared across them.
@@ -23,52 +30,131 @@ from __future__ import annotations
 
 import dataclasses
 from functools import lru_cache
-from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from ..grid import Grid, InterpolationMethod, InvPowerMode
+from ..grid import Grid, InterpolationMethod
 from . import basis
-from .chain_rules import invpower_value
+from .chain_rules import apply_invpower, invpower_value
+from .derivatives27 import DERIV_ORDERS, TRICUBIC_DERIV_MAP
+from .interpolate import (_CORNER_CX, _CORNER_CY, _CORNER_CZ,
+                          HERMITE_FAMILIES, GridEval, _hermite_tensor_eval,
+                          cell_index, finish_single, grid_back_power,
+                          grid_runtime_inv, locate, oob_deviation)
 
-
-class GridEval(NamedTuple):
-    energy: torch.Tensor           # [...]: total grid energy
-    forces: torch.Tensor           # [..., N, 3]
-    per_atom_energy: torch.Tensor  # [..., N]
+_HERMITE_METHODS = (InterpolationMethod.TRICUBIC,
+                    InterpolationMethod.TRIQUINTIC)
+# interpolation method -> per-axis polynomial degree + 1 of its cells
+_DEGREES = {int(InterpolationMethod.TRILINEAR): 2,
+            int(InterpolationMethod.BSPLINE): 4,
+            int(InterpolationMethod.TRICUBIC): 4,
+            int(InterpolationMethod.TRIQUINTIC): 6}
 
 
 # ----------------------------------------------------------------------
-# Basis -> monomial coefficient matrices
+# Basis -> polynomial coefficient matrices, fitted in float64 on the host
 # ----------------------------------------------------------------------
+
+def _poly_coeffs_from_fn(fn, shape, degree):
+    """Exact monomial coefficients [degree+1, *shape] of the polynomial
+    basis functions ``fn`` (returning [..., *shape]), from a Vandermonde
+    solve at degree+1 nodes."""
+    t = np.linspace(0.0, 1.0, degree + 1)
+    V = np.vander(t, degree + 1, increasing=True)    # [nodes, powers]
+    vals = fn(torch.from_numpy(t)).numpy().reshape(degree + 1, -1)
+    return np.linalg.solve(V, vals).reshape((degree + 1,) + shape)
+
 
 @lru_cache(maxsize=None)
 def _value_axis_matrix(method: int) -> np.ndarray:
     """C[p, a]: monomial coefficients of the per-axis stencil weight for
-    offset a, fitted in float64 from the basis functions at degree+1
-    nodes (exact for these degrees)."""
+    offset a (value-based methods)."""
     if method == InterpolationMethod.TRILINEAR:
-        fn, degree = basis.trilinear_weights, 1
-    elif method == InterpolationMethod.BSPLINE:
-        fn, degree = basis.bspline_weights, 3
-    else:
-        raise ValueError(method)
-    t = np.linspace(0.0, 1.0, degree + 1)
-    V = np.vander(t, degree + 1, increasing=True)    # [nodes, powers]
-    vals = fn(torch.from_numpy(t)).numpy()           # [nodes, nbasis]
-    return np.linalg.solve(V, vals)                   # [powers, nbasis]
+        return _poly_coeffs_from_fn(basis.trilinear_weights, (2,), 1)
+    if method == InterpolationMethod.BSPLINE:
+        return _poly_coeffs_from_fn(basis.bspline_weights, (4,), 3)
+    raise ValueError(method)
 
 
-def _poly_powers(v, d: int):
-    """[..., d] monomials v^p."""
-    return torch.stack([v ** p for p in range(d)], dim=-1)
+@lru_cache(maxsize=None)
+def _hermite_axis_matrix(method: int) -> np.ndarray:
+    """H[p, m, s]: monomial coefficients of the Hermite basis H_{m,s}."""
+    if method == InterpolationMethod.TRICUBIC:
+        return _poly_coeffs_from_fn(basis.hermite3_weights, (2, 2), 3)
+    if method == InterpolationMethod.TRIQUINTIC:
+        return _poly_coeffs_from_fn(basis.hermite5_weights, (3, 2), 5)
+    raise ValueError(method)
 
 
-def _poly_dpowers(v, d: int):
-    """[..., d] d/dv of the monomials."""
+@lru_cache(maxsize=None)
+def _monomial_to_cheb(d: int) -> np.ndarray:
+    """B[p, j]: turns monomial coefficients a_j (in v on [0, 1]) into the
+    Chebyshev coefficients b_p of the same polynomial in T_p(2v - 1)."""
+    # C2M[p, j] = coefficient of v^j in T_p(2v - 1)
+    C2M = np.zeros((d, d))
+    pv = np.polynomial.polynomial.Polynomial([-1.0, 2.0])   # u = 2v - 1
+    for pp in range(d):
+        c = np.zeros(pp + 1)
+        c[pp] = 1.0
+        out = np.polynomial.polynomial.Polynomial([0.0])
+        for j, cj in enumerate(np.polynomial.chebyshev.cheb2poly(c)):
+            out = out + cj * pv ** j
+        C2M[pp, :len(out.coef)] = out.coef
+    return np.linalg.inv(C2M).T
+
+
+@lru_cache(maxsize=None)
+def _hermite_axis_matrix_cheb(method: int) -> np.ndarray:
+    """Hc[p, m, s]: Chebyshev coefficients (in T_p(2v - 1)) of the Hermite
+    basis H_{m,s}: the monomial axis matrix composed with the change of
+    basis, in float64. Packing with Hc yields Chebyshev cell coefficients
+    directly: the huge, cancellation-prone monomial coefficients are never
+    formed, each axis contraction gives bounded coefficients of a partial
+    interpolant, and the pack can run in the grid's own dtype."""
+    H = _hermite_axis_matrix(method)
+    return np.einsum("pj,jms->pms", _monomial_to_cheb(H.shape[0]), H)
+
+
+def _poly_powers(v, d: int, poly_basis: str):
+    """[..., d] basis values at cell fraction v: v^p or T_p(2v - 1)."""
+    if poly_basis == "monomial":
+        return torch.stack([v ** p for p in range(d)], dim=-1)
+    u = 2.0 * v - 1.0
+    T = [torch.ones_like(v), u]
+    for _ in range(2, d):
+        T.append(2.0 * u * T[-1] - T[-2])
+    return torch.stack(T[:d], dim=-1)
+
+
+def _poly_dpowers(v, d: int, poly_basis: str):
+    """[..., d] d/dv of the basis values."""
+    if poly_basis == "monomial":
+        return torch.stack([torch.zeros_like(v)]
+                           + [p * v ** (p - 1) for p in range(1, d)],
+                           dim=-1)
+    # d/dv T_p(2v - 1) = 2 p U_{p-1}(2v - 1)
+    u = 2.0 * v - 1.0
+    U = [torch.ones_like(v), 2.0 * u]
+    for _ in range(2, d - 1):
+        U.append(2.0 * u * U[-1] - U[-2])
     return torch.stack([torch.zeros_like(v)]
-                       + [p * v ** (p - 1) for p in range(1, d)], dim=-1)
+                       + [2.0 * p * U[p - 1] for p in range(1, d)], dim=-1)
+
+
+def _coeffs_to_cheb(coeffs, d: int):
+    """[ncells, d^3] monomial -> Chebyshev tensor coefficients."""
+    B = torch.as_tensor(_monomial_to_cheb(d), dtype=coeffs.dtype,
+                        device=coeffs.device)
+    R = torch.einsum("pi,qj,rk,cijk->cpqr", B, B, B,
+                     coeffs.reshape(-1, d, d, d))
+    return R.reshape(-1, d ** 3)
+
+
+# the canonical 27-slot order as a [mx, my, mz] lookup
+_D27_TO_M3 = np.zeros((3, 3, 3), dtype=np.int64)
+for _i, (_a, _b, _c) in enumerate(DERIV_ORDERS):
+    _D27_TO_M3[_a, _b, _c] = _i
 
 
 # ----------------------------------------------------------------------
@@ -77,7 +163,7 @@ def _poly_dpowers(v, d: int):
 
 @dataclasses.dataclass(frozen=True)
 class PackedGrid:
-    """Per-cell monomial coefficients plus evaluation config."""
+    """Per-cell polynomial coefficients plus evaluation config."""
 
     coeffs: torch.Tensor          # [ncells, K], K = degree^3
     spacing: torch.Tensor         # [3]
@@ -88,6 +174,7 @@ class PackedGrid:
     # transforms are folded into the coefficients at pack time
     back_power: float = 0.0
     oob_k: float = 0.0
+    poly_basis: str = "monomial"
 
 
 def _edge_pad(P, lo: int, hi: int):
@@ -124,35 +211,78 @@ def _pack_values(vals, method, runtime_inv, inv_power, counts):
     return coeffs.reshape(ncx * ncy * ncz, C.shape[0] ** 3)
 
 
-def pack_grid(grid: Grid, dtype=None) -> PackedGrid:
-    """Per-cell monomial coefficients of a trilinear or B-spline Grid.
+def _pack_derivs(derivs, method, runtime_inv, inv_power, counts, out_basis):
+    """Per-cell coefficients [ncells, K] of a Hermite-method grid from its
+    derivatives [nx, ny, nz, 27]: one separable contraction per axis with
+    the Hermite axis matrix in the chosen basis."""
+    nx, ny, nz = counts
+    ncx, ncy, ncz = nx - 1, ny - 1, nz - 1
+    H = torch.as_tensor(_hermite_axis_matrix(method)
+                        if out_basis == "monomial"
+                        else _hermite_axis_matrix_cheb(method),
+                        dtype=derivs.dtype, device=derivs.device)
+    m = H.shape[1]  # 2 (tricubic) or 3 (triquintic)
+    if runtime_inv:
+        derivs = apply_invpower(derivs, 1.0 / inv_power)
+    # reindex [.., 27] -> [.., mx, my, mz], restricted to orders < m
+    sel = torch.as_tensor(_D27_TO_M3[:m, :m, :m].reshape(-1),
+                          device=derivs.device)
+    D = derivs.index_select(-1, sel).reshape(nx, ny, nz, m, m, m)
 
-    Packs in float64 on the grid's device and casts the table to
-    ``dtype`` (default: the grid's dtype).
+    Sx = torch.stack([D[0:ncx], D[1:ncx + 1]], dim=0)
+    T = torch.einsum("pms,sijkmno->pijkno", H, Sx)
+    Sy = torch.stack([T[:, :, 0:ncy], T[:, :, 1:ncy + 1]], dim=0)
+    T = torch.einsum("qns,spijkno->qpijko", H, Sy)
+    Sz = torch.stack([T[:, :, :, :, 0:ncz], T[:, :, :, :, 1:ncz + 1]],
+                     dim=0)
+    T = torch.einsum("ros,sqpijko->rqpijk", H, Sz)
+    coeffs = T.permute(3, 4, 5, 2, 1, 0)   # [i, j, k, px, py, pz]
+    return coeffs.reshape(ncx * ncy * ncz, H.shape[0] ** 3)
+
+
+def pack_grid(grid: Grid, dtype=None,
+              poly_basis: str | None = None) -> PackedGrid:
+    """Per-cell polynomial coefficients of a Grid, on the grid's device.
+
+    ``poly_basis``: "monomial" or "chebyshev". Default (None): Chebyshev
+    for float32 packs of the Hermite methods (tricubic, triquintic), where
+    the monomial form loses about 1 kJ/mol near receptor cores in float32;
+    monomial otherwise.
+
+    Value-method packs contract in float64 and cast the table to ``dtype``
+    (default: the grid's dtype). Hermite-method packs contract in
+    ``dtype``: with the fused basis-to-Chebyshev axis matrices every
+    intermediate is a bounded Chebyshev coefficient, so float32 needs no
+    float64 detour.
     """
     dtype = dtype or grid.vals.dtype
-    method = grid.interp_method
-    if method not in (InterpolationMethod.TRILINEAR,
-                      InterpolationMethod.BSPLINE):
-        raise NotImplementedError(
-            f"packing {InterpolationMethod(method).name} grids is not "
-            "ported yet (ROADMAP: Hermite packs, Queue A item 9)")
-    back_power = 0.0
-    if grid.inv_power_mode in (InvPowerMode.RUNTIME, InvPowerMode.STORED) \
-            and grid.inv_power != 0.0:
-        back_power = grid.inv_power
-    runtime_inv = (grid.inv_power_mode == InvPowerMode.RUNTIME
-                   and grid.inv_power != 0.0)
-    coeffs = _pack_values(grid.vals.to(torch.float64), int(method),
-                          runtime_inv, grid.inv_power, grid.counts)
+    method = int(grid.interp_method)
+    hermite = method in _HERMITE_METHODS
+    if poly_basis is None:
+        poly_basis = ("chebyshev" if hermite and dtype == torch.float32
+                      else "monomial")
+    if poly_basis not in ("monomial", "chebyshev"):
+        raise ValueError(f"unknown poly_basis {poly_basis!r}")
+    runtime_inv = grid_runtime_inv(grid)
+    if hermite:
+        if grid.derivs is None:
+            raise ValueError("Hermite methods need precomputed derivatives")
+        coeffs = _pack_derivs(grid.derivs.to(dtype), method, runtime_inv,
+                              grid.inv_power, grid.counts, poly_basis)
+    else:
+        coeffs = _pack_values(grid.vals.to(torch.float64), method,
+                              runtime_inv, grid.inv_power, grid.counts)
+        if poly_basis == "chebyshev":
+            coeffs = _coeffs_to_cheb(coeffs, _DEGREES[method])
     return PackedGrid(
         coeffs=coeffs.to(dtype).contiguous(),
         spacing=grid.spacing.to(dtype),
         origin=grid.origin.to(dtype),
         counts=grid.counts,
-        degree=2 if method == InterpolationMethod.TRILINEAR else 4,
-        back_power=back_power,
+        degree=_DEGREES[method],
+        back_power=grid_back_power(grid),
         oob_k=grid.oob_k,
+        poly_basis=poly_basis,
     )
 
 
@@ -160,35 +290,12 @@ def pack_grid(grid: Grid, dtype=None) -> PackedGrid:
 # Evaluation
 # ----------------------------------------------------------------------
 
-def _locate(positions, spacing, origin, counts):
-    """Box test, clamped cell index and fraction of positions [..., 3].
-
-    Returns (pos, corner, inside [...], cell [...], f [..., 3])."""
-    dtype = spacing.dtype
-    pos = positions - origin
-    fcounts = torch.tensor(counts, dtype=dtype, device=pos.device)
-    corner = spacing * (fcounts - 1.0)
-    inside = ((pos >= 0.0) & (pos <= corner)).all(-1)
-    t = pos / spacing
-    hi = torch.tensor(counts, device=pos.device) - 2
-    ixyz = torch.minimum(torch.floor(t).to(torch.int64).clamp_min(0), hi)
-    f = (t - ixyz).clamp(0.0, 1.0)
-    ncy, ncz = counts[1] - 1, counts[2] - 1
-    cell = (ixyz[..., 0] * ncy + ixyz[..., 1]) * ncz + ixyz[..., 2]
-    return pos, corner, inside, cell, f
-
-
-def _oob_deviation(pos, corner):
-    zero = torch.zeros_like(pos)
-    return torch.where(pos < 0.0, pos,
-                       torch.where(pos > corner, pos - corner, zero))
-
-
-def _tensor_poly(R, f, d):
+def _tensor_poly(R, f, d, poly_basis):
     """Value and fraction-gradient of the cell polynomials R [..., d,d,d]
     (leading dims broadcast against f [..., 3]). Returns (P, grad [.., 3])."""
-    px, py, pz = (_poly_powers(f[..., a], d) for a in range(3))
-    dpx, dpy, dpz = (_poly_dpowers(f[..., a], d) for a in range(3))
+    px, py, pz = (_poly_powers(f[..., a], d, poly_basis) for a in range(3))
+    dpx, dpy, dpz = (_poly_dpowers(f[..., a], d, poly_basis)
+                     for a in range(3))
     extra = R.dim() - 3 - (f.dim() - 1)   # grid axis between atoms and pqr
 
     def lift(v):
@@ -206,43 +313,35 @@ def _tensor_poly(R, f, d):
     return P, grad
 
 
+def _inputs(table, positions, scaling_factors):
+    """Positions and scalings in the dtype and on the device of a pack."""
+    dtype = table.coeffs.dtype
+    positions = positions.to(dtype)
+    return positions, torch.as_tensor(scaling_factors, dtype=dtype,
+                                      device=positions.device)
+
+
+def _gather_rows(table, positions):
+    """Locate atoms and gather each one's cell row.
+
+    Returns (pos, corner, inside, f, rows [..., N, width])."""
+    pos, corner, inside, ixyz, f = locate(positions, table.spacing,
+                                          table.origin, table.counts)
+    cell = cell_index(ixyz, table.counts)
+    rows = table.coeffs.index_select(0, cell.reshape(-1))
+    return pos, corner, inside, f, rows.reshape(cell.shape + (-1,))
+
+
 def evaluate_packed(packed: PackedGrid, positions,
                     scaling_factors) -> GridEval:
     """Energy and forces of atoms [..., N, 3] on one packed grid."""
-    dtype = packed.coeffs.dtype
-    positions = positions.to(dtype)
-    scaling = torch.as_tensor(scaling_factors, dtype=dtype,
-                              device=positions.device)
-    pos, corner, inside, cell, f = _locate(positions, packed.spacing,
-                                           packed.origin, packed.counts)
+    positions, scaling = _inputs(packed, positions, scaling_factors)
+    pos, corner, inside, f, rows = _gather_rows(packed, positions)
     d = packed.degree
-    rows = packed.coeffs.index_select(0, cell.reshape(-1))
-    R = rows.reshape(cell.shape + (d, d, d))
-    interp, grad_s = _tensor_poly(R, f, d)
-
-    if packed.back_power != 0.0:
-        n = packed.back_power
-        sign = torch.where(interp >= 0.0, 1.0, -1.0).to(dtype)
-        a = interp.abs()
-        active = a > 1e-10
-        a_safe = torch.where(active, a, torch.ones_like(a))
-        pf = n * a_safe ** (n - 1.0)
-        interp = torch.where(active, sign * a_safe ** n, interp)
-        grad_s = torch.where(active[..., None], grad_s * pf[..., None],
-                             grad_s)
-
-    grad_phys = grad_s / packed.spacing
-    energy_in = scaling * interp
-    force_in = -scaling[..., None] * grad_phys
-
-    dev = _oob_deviation(pos, corner)
-    energy_oob = 0.5 * packed.oob_k * (dev * dev).sum(-1)
-    force_oob = -packed.oob_k * dev
-
-    active = inside & (scaling != 0.0)
-    per_atom = torch.where(active, energy_in, energy_oob)
-    forces = torch.where(active[..., None], force_in, force_oob)
-    return GridEval(per_atom.sum(-1), forces, per_atom)
+    R = rows.reshape(rows.shape[:-1] + (d, d, d))
+    interp, grad_s = _tensor_poly(R, f, d, packed.poly_basis)
+    return finish_single(interp, grad_s, packed.back_power, packed.spacing,
+                         scaling, pos, corner, inside, packed.oob_k)
 
 
 # ----------------------------------------------------------------------
@@ -262,21 +361,27 @@ class MultiPackedGrid:
     n_grids: int = 1
     back_powers: tuple = ()
     oob_k: float = 0.0
+    poly_basis: str = "monomial"
 
 
-def combine_packed_grids(packed_grids) -> MultiPackedGrid:
-    """Fuse PackedGrids with identical geometry and degree into one
-    table [ncells, G*K]."""
-    first = packed_grids[0]
-    for p in packed_grids[1:]:
-        if (p.counts != first.counts or p.degree != first.degree
-                or p.oob_k != first.oob_k):
-            raise ValueError("grids must share counts/degree/oob_k to fuse")
+def _check_fusable(packs, fields):
+    """Raise unless the packs share ``fields`` and their geometry."""
+    first = packs[0]
+    for p in packs[1:]:
+        if any(getattr(p, k) != getattr(first, k) for k in fields):
+            raise ValueError(f"grids must share {'/'.join(fields)} to fuse")
         if not (torch.allclose(p.spacing, first.spacing)
                 and torch.allclose(p.origin, first.origin)):
             raise ValueError("grids must be co-located (same spacing and "
                              "origin) to fuse — evaluation would use the "
                              "first grid's geometry for all")
+
+
+def combine_packed_grids(packed_grids) -> MultiPackedGrid:
+    """Fuse PackedGrids with identical geometry, degree and basis into one
+    table [ncells, G*K]."""
+    _check_fusable(packed_grids, ("counts", "degree", "oob_k", "poly_basis"))
+    first = packed_grids[0]
     return MultiPackedGrid(
         coeffs=torch.cat([p.coeffs for p in packed_grids], dim=1),
         spacing=first.spacing,
@@ -286,10 +391,46 @@ def combine_packed_grids(packed_grids) -> MultiPackedGrid:
         n_grids=len(packed_grids),
         back_powers=tuple(p.back_power for p in packed_grids),
         oob_k=first.oob_k,
+        poly_basis=first.poly_basis,
     )
 
 
-def evaluate_multi(multi: MultiPackedGrid, positions, scaling_factors):
+def _finish_multi(interp, grad_s, back_powers, spacing, scaling, pos,
+                  corner, inside, oob_k) -> GridEval:
+    """The tail of the fused evaluators: from interpolated values
+    [..., N, G] and fraction-gradients [..., N, G, 3] of G grids to summed
+    energies and forces, the restraint applied once for the set.
+    ``scaling`` is [G, N]."""
+    dtype, device = interp.dtype, interp.device
+    if any(bp != 0.0 for bp in back_powers):
+        bps = torch.tensor(back_powers, dtype=dtype, device=device)
+        sign = torch.where(interp >= 0.0, 1.0, -1.0).to(dtype)
+        a = interp.abs()
+        act = (a > 1e-10) & (bps != 0.0)
+        one = torch.ones_like(a)
+        a_safe = torch.where(act, a, one)
+        pf = torch.where(act, bps * a_safe ** (bps - 1.0), one)
+        interp = torch.where(act, sign * a_safe ** bps, interp)
+        grad_s = grad_s * pf[..., None]
+
+    grad_phys = grad_s / spacing                        # [..., N, G, 3]
+    s_t = scaling.transpose(0, 1)                       # [N, G]
+    active = inside[..., None] & (s_t != 0.0)           # [..., N, G]
+    zero = torch.zeros((), dtype=dtype, device=device)
+    per_atom = torch.where(active, s_t * interp, zero).sum(-1)
+    force_in = -torch.where(active[..., None], s_t[..., None] * grad_phys,
+                            zero).sum(-2)
+
+    dev = oob_deviation(pos, corner)
+    oob = ~inside
+    per_atom = per_atom + torch.where(
+        oob, 0.5 * oob_k * (dev * dev).sum(-1), zero)
+    forces = force_in + torch.where(oob[..., None], -oob_k * dev, zero)
+    return GridEval(per_atom.sum(-1), forces, per_atom)
+
+
+def evaluate_multi(multi: MultiPackedGrid, positions,
+                   scaling_factors) -> GridEval:
     """Evaluate all fused grids with one gather per atom.
 
     Args:
@@ -299,42 +440,119 @@ def evaluate_multi(multi: MultiPackedGrid, positions, scaling_factors):
     Returns GridEval where per-atom energies/forces are summed over grids;
     the out-of-bounds restraint is applied once for the fused set.
     """
-    dtype = multi.coeffs.dtype
-    positions = positions.to(dtype)
-    scaling = torch.as_tensor(scaling_factors, dtype=dtype,
-                              device=positions.device)       # [G, N]
-    pos, corner, inside, cell, f = _locate(positions, multi.spacing,
-                                           multi.origin, multi.counts)
+    positions, scaling = _inputs(multi, positions, scaling_factors)
+    pos, corner, inside, f, rows = _gather_rows(multi, positions)
     d = multi.degree
-    G = multi.n_grids
-    rows = multi.coeffs.index_select(0, cell.reshape(-1))
-    R = rows.reshape(cell.shape + (G, d, d, d))
-    interp, grad_s = _tensor_poly(R, f, d)             # [..., N, G(, 3)]
+    R = rows.reshape(rows.shape[:-1] + (multi.n_grids, d, d, d))
+    interp, grad_s = _tensor_poly(R, f, d, multi.poly_basis)
+    return _finish_multi(interp, grad_s, multi.back_powers, multi.spacing,
+                         scaling, pos, corner, inside, multi.oob_k)
 
-    if any(bp != 0.0 for bp in multi.back_powers):
-        bps = torch.tensor(multi.back_powers, dtype=dtype,
-                           device=positions.device)
-        enabled = bps != 0.0
-        sign = torch.where(interp >= 0.0, 1.0, -1.0).to(dtype)
-        a = interp.abs()
-        act = (a > 1e-10) & enabled
-        one = torch.ones_like(a)
-        a_safe = torch.where(act, a, one)
-        pf = torch.where(act, bps * a_safe ** (bps - 1.0), one)
-        interp = torch.where(act, sign * a_safe ** bps, interp)
-        grad_s = grad_s * pf[..., None]
 
-    grad_phys = grad_s / multi.spacing                 # [..., N, G, 3]
-    s_t = scaling.transpose(0, 1)                       # [N, G]
-    active = inside[..., None] & (s_t != 0.0)           # [..., N, G]
-    zero = torch.zeros((), dtype=dtype, device=positions.device)
-    per_atom = torch.where(active, s_t * interp, zero).sum(-1)
-    force_in = -torch.where(active[..., None], s_t[..., None] * grad_phys,
-                            zero).sum(-2)
+# ----------------------------------------------------------------------
+# Hermite-packed grids: one row gather per atom, bounded basis
+# ----------------------------------------------------------------------
 
-    dev = _oob_deviation(pos, corner)
-    oob = ~inside
-    per_atom = per_atom + torch.where(
-        oob, 0.5 * multi.oob_k * (dev * dev).sum(-1), zero)
-    forces = force_in + torch.where(oob[..., None], -multi.oob_k * dev, zero)
-    return GridEval(per_atom.sum(-1), forces, per_atom)
+@dataclasses.dataclass(frozen=True)
+class HermitePackedGrid:
+    """Per-cell corner-derivative rows plus evaluation config."""
+
+    coeffs: torch.Tensor          # [ncells, 8*D] (D = 8 or 27)
+    spacing: torch.Tensor         # [3]
+    origin: torch.Tensor          # [3]
+    counts: tuple = (0, 0, 0)
+    method: int = int(InterpolationMethod.TRIQUINTIC)
+    back_power: float = 0.0
+    oob_k: float = 0.0
+
+
+def _pack_hermite_rows(derivs27, method, runtime_inv, inv_power, counts):
+    nx, ny, nz = counts
+    ncx, ncy, ncz = nx - 1, ny - 1, nz - 1
+    D = derivs27
+    if runtime_inv:
+        D = apply_invpower(D, 1.0 / inv_power)
+    if method == InterpolationMethod.TRICUBIC:
+        D = D.index_select(-1, torch.as_tensor(TRICUBIC_DERIV_MAP,
+                                               device=D.device))
+    corners = [D[cx:cx + ncx, cy:cy + ncy, cz:cz + ncz]
+               for cx, cy, cz in zip(_CORNER_CX, _CORNER_CY, _CORNER_CZ)]
+    X = torch.stack(corners, dim=3)                 # [i, j, k, 8, D]
+    return X.reshape(ncx * ncy * ncz, -1)
+
+
+def pack_grid_hermite(grid: Grid, dtype=None) -> HermitePackedGrid:
+    """Pack a Hermite-method Grid into per-cell corner-derivative rows."""
+    method = int(grid.interp_method)
+    if method not in _HERMITE_METHODS:
+        raise ValueError("pack_grid_hermite is for tricubic/triquintic")
+    if grid.derivs is None:
+        raise ValueError("Hermite methods need precomputed derivatives")
+    dtype = dtype or grid.vals.dtype
+    coeffs = _pack_hermite_rows(grid.derivs.to(dtype), method,
+                                grid_runtime_inv(grid), grid.inv_power,
+                                grid.counts)
+    return HermitePackedGrid(
+        coeffs=coeffs.contiguous(),
+        spacing=grid.spacing.to(dtype),
+        origin=grid.origin.to(dtype),
+        counts=grid.counts,
+        method=method,
+        back_power=grid_back_power(grid),
+        oob_k=grid.oob_k,
+    )
+
+
+def evaluate_hermite_packed(hp: HermitePackedGrid, positions,
+                            scaling_factors) -> GridEval:
+    """Energy and forces of atoms [..., N, 3] on one Hermite-packed grid
+    (same clamping, restraint and back-transform as evaluate_packed)."""
+    positions, scaling = _inputs(hp, positions, scaling_factors)
+    pos, corner, inside, f, rows = _gather_rows(hp, positions)
+    X = rows.reshape(rows.shape[:-1] + (8, -1))         # [..., N, 8, D]
+    interp, grad_s = _hermite_tensor_eval(X, f,
+                                          *HERMITE_FAMILIES[hp.method])
+    return finish_single(interp, grad_s, hp.back_power, hp.spacing, scaling,
+                         pos, corner, inside, hp.oob_k)
+
+
+@dataclasses.dataclass(frozen=True)
+class MultiHermitePackedGrid:
+    """G Hermite-packed grids fused into one row table [ncells, G*8*D]:
+    one gather per atom serves every co-located grid in the bounded-basis
+    representation."""
+
+    coeffs: torch.Tensor
+    spacing: torch.Tensor
+    origin: torch.Tensor
+    counts: tuple = (0, 0, 0)
+    method: int = int(InterpolationMethod.TRIQUINTIC)
+    n_grids: int = 1
+    back_powers: tuple = ()
+    oob_k: float = 0.0
+
+
+def combine_hermite_packed(hps) -> MultiHermitePackedGrid:
+    """Fuse HermitePackedGrids with identical geometry and method."""
+    _check_fusable(hps, ("counts", "method", "oob_k"))
+    first = hps[0]
+    return MultiHermitePackedGrid(
+        coeffs=torch.cat([p.coeffs for p in hps], dim=1),
+        spacing=first.spacing, origin=first.origin, counts=first.counts,
+        method=first.method, n_grids=len(hps),
+        back_powers=tuple(p.back_power for p in hps), oob_k=first.oob_k)
+
+
+def evaluate_hermite_multi(multi: MultiHermitePackedGrid, positions,
+                           scaling_factors) -> GridEval:
+    """All fused Hermite-packed grids with one gather per atom.
+
+    ``scaling_factors``: [G, N]. The restraint applies once per fused set
+    (same convention as evaluate_multi)."""
+    positions, scaling = _inputs(multi, positions, scaling_factors)
+    pos, corner, inside, f, rows = _gather_rows(multi, positions)
+    X = rows.reshape(rows.shape[:-1] + (multi.n_grids, 8, -1))
+    interp, grad_s = _hermite_tensor_eval(
+        X, f, *HERMITE_FAMILIES[multi.method])   # [..., N, G(, 3)]
+    return _finish_multi(interp, grad_s, multi.back_powers, multi.spacing,
+                         scaling, pos, corner, inside, multi.oob_k)

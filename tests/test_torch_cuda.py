@@ -9,7 +9,8 @@ import numpy as np
 import pytest
 import torch
 
-from openmmgridforce_tpu_torch.ops import cuda_gridgen, gridgen
+from openmmgridforce_tpu_torch.ops import (cuda_gridgen, cuda_gridgen_derivs,
+                                           gridgen)
 
 pytestmark = pytest.mark.cuda
 
@@ -50,3 +51,60 @@ def test_cap_on_atom_and_dtype_rules(cuda):
         gridgen.generate_grid((3, 3, 3), (0.1,) * 3, (0.0,) * 3, "ljr",
                               np.array([[0.1] * 3]), [0.0], [0.3], [1.0],
                               dtype=torch.float64, device=cuda)
+
+
+def _receptor(seed, n):
+    rng = np.random.default_rng(seed)
+    return (rng.uniform(-0.3, 1.2, (n, 3)), rng.uniform(-1, 1, n),
+            rng.uniform(0.2, 0.35, n), rng.uniform(0.1, 1.0, n))
+
+
+def _slot_err(got, ref):
+    got, ref = got.double().reshape(-1, 27), ref.double().reshape(-1, 27)
+    return float(((got - ref).abs().amax(0)
+                  / ref.abs().amax(0).clamp_min(1e-300)).max())
+
+
+@pytest.mark.parametrize("grid_type", ["charge", "ljr", "lja"])
+def test_derivs_kernel_matches_plain_twin(cuda, grid_type):
+    """5e-5 of each slot's max against the float32 twin, 2e-4 against the
+    float64 twin; 301 atoms and 9177 points are multiples of no tile."""
+    atoms = gridgen.receptor_atoms(grid_type, *_receptor(53, 301),
+                                   device=cuda)
+    args = ((19, 21, 23), (0.1, 0.11, 0.09), (0.0, -0.2, 0.3), grid_type)
+    before = cuda_gridgen_derivs.gridgen_derivs.launches
+    got = cuda_gridgen_derivs.gridgen_derivs(atoms, *args)
+    ref = cuda_gridgen_derivs.gridgen_derivs_plain(atoms, *args)
+    ref64 = cuda_gridgen_derivs.gridgen_derivs_plain(atoms.double(), *args)
+    torch.cuda.synchronize()
+    assert cuda_gridgen_derivs.gridgen_derivs.launches == before + 1
+    assert got.shape == (19, 21, 23, 27) and got.dtype == torch.float32
+    assert _slot_err(got, ref) < 5e-5
+    assert _slot_err(got, ref64) < 2e-4
+
+
+@pytest.mark.parametrize("lj_convention", ["rmin", "diameter"])
+def test_generate_grid_with_derivatives_launches_the_kernel(cuda,
+                                                            lj_convention):
+    """A CUDA float32 generate_grid(compute_derivatives=True) goes through
+    the kernel, and agrees with the CPU route (the field laws in float32)
+    at the float32 gate of 5e-5 per slot."""
+    pos, q, sig, eps = _receptor(7, 40)
+    args = ((10, 9, 8), (0.1,) * 3, (0.0, -0.1, 0.1), "ljr", pos, q, sig,
+            eps)
+    kw = dict(compute_derivatives=True, grid_cap=800.0,
+              lj_convention=lj_convention)
+    before = (cuda_gridgen_derivs.gridgen_derivs.launches,
+              cuda_gridgen.gridgen_values.launches)
+    got = gridgen.generate_grid(*args, device=cuda, **kw)
+    assert (cuda_gridgen_derivs.gridgen_derivs.launches,
+            cuda_gridgen.gridgen_values.launches) == (before[0] + 1,
+                                                      before[1])
+    assert got.derivs.is_cuda and torch.equal(got.vals, got.derivs[..., 0])
+    ref = gridgen.generate_grid(*args, device="cpu", **kw)
+    assert _slot_err(got.derivs.cpu(), ref.derivs) < 5e-5
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        gridgen.generate_grid(*args, dtype=torch.float64, device=cuda, **kw)
+    with pytest.raises(NotImplementedError, match="float64"):
+        cuda_gridgen_derivs.gridgen_derivs(
+            torch.zeros(3, 4, dtype=torch.float64, device=cuda), *args[:4])

@@ -116,7 +116,11 @@ def test_values_at_points_and_positions_match_jax():
 
 
 def test_unported_options_raise():
+    """float64 on the card is still to come, with or without derivatives;
+    the refusal comes before anything touches the device."""
     pos, q, sig, eps = _receptor(5)
-    with pytest.raises(NotImplementedError, match="derivatives"):
-        gridgen.generate_grid(COUNTS, SPACING, ORIGIN, "ljr", pos, q, sig,
-                              eps, compute_derivatives=True, device="cpu")
+    for derivs in (False, True):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            gridgen.generate_grid(COUNTS, SPACING, ORIGIN, "ljr", pos, q,
+                                  sig, eps, compute_derivatives=derivs,
+                                  dtype=torch.float64, device="cuda:0")

@@ -14,7 +14,9 @@ import torch
 import openmmgridforce_tpu_torch as port
 from openmmgridforce_tpu_torch import convert
 from openmmgridforce_tpu_torch.mm import system
-from openmmgridforce_tpu_torch.ops import cuda_gridgen, gridgen, pairwise
+from openmmgridforce_tpu_torch import cuda_build
+from openmmgridforce_tpu_torch.ops import (cuda_gridgen, cuda_gridgen_derivs,
+                                           gridgen, pairwise, radial)
 from openmmgridforce_tpu_torch.parallel import replicas
 
 torch.set_num_threads(1)
@@ -33,7 +35,9 @@ def _module_names():
 
 def test_port_imports_no_jax():
     mods = _module_names()
-    assert "openmmgridforce_tpu_torch.ops.cuda_gridgen" in mods
+    for new in ("ops.cuda_gridgen", "ops.cuda_gridgen_derivs",
+                "ops.derivatives27", "ops.interpolate"):
+        assert "openmmgridforce_tpu_torch." + new in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -55,6 +59,23 @@ def test_no_jax_in_sources():
         assert not banned.search(f.read_text()), f
 
 
+def test_every_kernel_has_its_source():
+    """One library per kernel of the TPU-kernel table, each with its
+    sources under csrc/, a wrapper with a launch counter, and a plain twin
+    beside it."""
+    assert set(cuda_build.LIBRARIES) == {"gridgen_values", "gridgen_derivs"}
+    for name, sources in cuda_build.LIBRARIES.items():
+        assert sources, name
+        for src in sources:
+            text = (cuda_build.CSRC / src).read_text()
+            assert f'extern "C" int {name}_launch(' in text, src
+            assert "__global__" in text, src
+    for module, name in ((cuda_gridgen, "gridgen_values"),
+                         (cuda_gridgen_derivs, "gridgen_derivs")):
+        assert getattr(module, name).launches == 0
+        assert callable(getattr(module, name + "_plain"))
+
+
 def _no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
@@ -72,6 +93,10 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         lambda: gridgen.generate_grid((3, 3, 3), (0.1,) * 3, (0.0,) * 3,
                                       "charge", x, lig.charges, lig.sigmas,
                                       lig.epsilons),
+        lambda: gridgen.generate_grid((3, 3, 3), (0.1,) * 3, (0.0,) * 3,
+                                      "charge", x, lig.charges, lig.sigmas,
+                                      lig.epsilons,
+                                      compute_derivatives=True),
         lambda: system.system_from_amber(lig),
         lambda: pairwise.build_pair_table(lig.charges, lig.sigmas,
                                           lig.epsilons),
@@ -80,6 +105,9 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         lambda: system.make_md_runner(2, 0.001, 1.0),
         lambda: convert.grid_from_arrays(z, (0.1,) * 3, (0.0,) * 3),
         lambda: convert.states_from_arrays(x, x, seed=0),
+        lambda: convert.hermite_packed_from_arrays(
+            np.zeros((8, 64)), (0.1,) * 3, (0.0,) * 3, counts=(3, 3, 3),
+            method=2),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -108,3 +136,132 @@ def test_plain_twin_chunks_agree():
     a = cuda_gridgen.gridgen_values_plain(atoms, *args)
     b = cuda_gridgen.gridgen_values_plain(atoms, *args, pair_block=29)
     np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-14)
+
+
+def test_derivs_wrapper_takes_plain_twin_on_cpu():
+    before = cuda_gridgen_derivs.gridgen_derivs.launches
+    atoms = torch.tensor([[0.1, 0.2, 0.3, 2.0], [0.5, 0.1, 0.0, -1.0]],
+                         dtype=torch.float64)
+    args = ((4, 5, 6), (0.1, 0.1, 0.1), (0.0, 0.0, 0.0), "charge")
+    got = cuda_gridgen_derivs.gridgen_derivs(atoms, *args)
+    ref = cuda_gridgen_derivs.gridgen_derivs_plain(atoms, *args)
+    assert got.shape == (4, 5, 6, 27)
+    assert torch.equal(got.reshape(-1, 27), ref)
+    assert cuda_gridgen_derivs.gridgen_derivs.launches == before == 0
+    # slot 0 is the uncapped field itself: K / r with r >= 0.02 nm
+    point = torch.tensor([0.3, 0.4, 0.5], dtype=torch.float64)
+    r = (point - atoms[:, :3]).norm(dim=1)
+    np.testing.assert_allclose(float(got[3, 4, 5, 0]),
+                               float(2.0 / r[0] - 1.0 / r[1]), rtol=1e-12)
+
+
+def _folded_pair_terms(dx, dy, dz, K, grid_type):
+    """The 27 derivative terms of K / r^m with the work shared: every
+    cascade combination of order n is one constant times K / r^(m+n) (the
+    power law's coefficients are constants of the grid type), 1/r^m comes
+    from squarings, and each product of direction cosines is formed once.
+    Same function as ``pair_derivative_terms``, fewer operations."""
+    m, c = radial.FIELD_POWERS[grid_type]
+    t3 = c[3] - 3 * c[2] + 3 * c[1]
+    t4 = c[4] - 6 * c[3] + 15 * c[2] - 15 * c[1]
+    t5 = c[5] - 10 * c[4] + 45 * c[3] - 105 * c[2] + 105 * c[1]
+    t6 = (c[6] - 15 * c[5] + 105 * c[4] - 420 * c[3] + 945 * c[2]
+          - 945 * c[1])
+    t2 = c[2] - c[1]
+    r2 = (dx * dx + dy * dy + dz * dz).clamp_min(
+        cuda_gridgen_derivs.R2_MIN_DERIVS)
+    inv_r = torch.rsqrt(r2)
+    inv_rm = inv_r
+    if m > 1:
+        i2 = inv_r * inv_r
+        i3 = i2 * inv_r
+        inv_rm = i3 * i3
+    if m == 12:
+        inv_rm = inv_rm * inv_rm
+    P0 = K * inv_rm
+    P1 = P0 * inv_r
+    P2 = P1 * inv_r
+    P3 = P2 * inv_r
+    P4 = P3 * inv_r
+    P5 = P4 * inv_r
+    P6 = P5 * inv_r
+    dU, dUr, A2 = c[1] * P1, c[1] * P2, t2 * P2
+    A3, B3 = t3 * P3, t2 * P3
+    A4, B4, C4 = t4 * P4, t3 * P4, t2 * P4
+    A5, B5, C5 = t5 * P5, t4 * P5, t3 * P5
+    A6, B6, C6, D6 = t6 * P6, t5 * P6, t4 * P6, t3 * P6
+    nx, ny, nz = dx * inv_r, dy * inv_r, dz * inv_r
+    nx2, ny2, nz2 = nx * nx, ny * ny, nz * nz
+    xy, xz, yz = nx * ny, nx * nz, ny * nz
+    Gx, Gy, Gz = A3 * nx2 + B3, A3 * ny2 + B3, A3 * nz2 + B3
+    qxy, qxz, qyz = nx2 * ny2, nx2 * nz2, ny2 * nz2
+    sxy, sxz, syz = nx2 + ny2, nx2 + nz2, ny2 + nz2
+    Hx, Hy, Hz = A4 * nx2 + B4, A4 * ny2 + B4, A4 * nz2 + B4
+    return [
+        P0, dU * nx, dU * ny, dU * nz,
+        A2 * nx2 + dUr, A2 * xy, A2 * xz, A2 * ny2 + dUr, A2 * yz,
+        A2 * nz2 + dUr,
+        Gx * ny, Gx * nz, Gy * nx, A3 * (xy * nz), Gy * nz, Gz * nx,
+        Gz * ny,
+        A4 * qxy + (B4 * sxy + C4), A4 * qxz + (B4 * sxz + C4),
+        A4 * qyz + (B4 * syz + C4),
+        Hx * yz, Hy * xz, Hz * xy,
+        (A5 * qxy + (B5 * sxy + C5)) * nz,
+        (A5 * qxz + (B5 * sxz + C5)) * ny,
+        (A5 * qyz + (B5 * syz + C5)) * nx,
+        A6 * (qxy * nz2) + (B6 * (qxy + qxz + qyz)
+                            + (C6 * (sxy + nz2) + D6)),
+    ]
+
+
+def test_chip_smoke_operation_counts_match_the_twin():
+    """chip_smoke's bound counts the FP32 operations per pair that the
+    derivative kernel's function needs: those of ``_folded_pair_terms``,
+    which is held here against the plain twin's values and traced with a
+    counting stand-in for a tensor. The twin's own, unshared arithmetic is
+    traced too and may only cost more."""
+    import chip_smoke
+
+    class Counted:
+        ops = 0
+        rsqrts = 0
+
+        def _op(self, *_):
+            Counted.ops += 1
+            return Counted()
+
+        __mul__ = __rmul__ = __add__ = __radd__ = _op
+        __sub__ = __rsub__ = clamp_min = _op
+
+        @classmethod
+        def __torch_function__(cls, func, types, args=(), kwargs=None):
+            assert func is torch.rsqrt
+            Counted.rsqrts += 1
+            return Counted()
+
+    def traced(fn, grid_type):
+        Counted.ops = Counted.rsqrts = 0
+        terms = fn(Counted(), Counted(), Counted(), Counted(), grid_type)
+        assert Counted.rsqrts == 1
+        # plus the displacement's 3 subtractions and the 27 additions
+        # into the running sums
+        return Counted.ops + 3 + len(terms)
+
+    rng = np.random.default_rng(0)
+    # displacements on both sides of the clamp at r = 0.02 nm
+    d = torch.from_numpy(rng.uniform(-1, 1, (3, 400))
+                         * rng.choice([0.01, 0.1, 1.0], 400))
+    K = torch.from_numpy(rng.uniform(-3, 3, 400))
+    for grid_type, want in chip_smoke.DERIVS_OPS_PER_PAIR.items():
+        ref = cuda_gridgen_derivs.pair_derivative_terms(*d, K, grid_type)
+        got = _folded_pair_terms(*d, K, grid_type)
+        assert len(got) == len(ref) == 27
+        for slot, (g, r) in enumerate(zip(got, ref)):
+            # float64; the twin's alternating cascade sums cancel a few
+            # digits
+            np.testing.assert_allclose(g.numpy(), r.numpy(), rtol=1e-9,
+                                       atol=1e-12 * float(r.abs().max()),
+                                       err_msg=f"{grid_type} slot {slot}")
+        assert traced(_folded_pair_terms, grid_type) == want, grid_type
+        assert traced(cuda_gridgen_derivs.pair_derivative_terms,
+                      grid_type) >= want, grid_type

@@ -120,6 +120,7 @@ def test_packed_from_arrays_round_trip():
 
 
 def test_hermite_methods_raise():
+    """A Hermite-method grid without derivatives cannot be packed."""
     _, tg = _grids(50, 2, 0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="precomputed derivatives"):
         packed.pack_grid(tg)

@@ -1,7 +1,9 @@
-"""The whole first slice of the port against the JAX package (float64,
-CPU): receptor grids -> B-spline packs -> fused table -> System -> replica
-states -> classic-Langevin segment. The JAX replica states are carried
-across with convert.py and both segments get the same noise."""
+"""The port's slices as wholes against the JAX package (float64, CPU):
+receptor grids -> packs -> fused table -> System -> replica states ->
+classic-Langevin segment, on the value path (B-spline packs) and on the
+derivative path (grids with 27 derivatives, triquintic Chebyshev packs).
+The JAX replica states are carried across with convert.py and both
+segments get the same noise."""
 
 import jax
 import jax.numpy as jnp
@@ -38,31 +40,43 @@ def _jax_noise(keys, n_steps, shape):
     return np.array(jnp.swapaxes(jax.vmap(one)(keys), 0, 1))
 
 
-def _run_slice(lig, x, rec, rec_x, margin, sp, n_steps):
+def _run_slice(lig, x, rec, rec_x, margin, sp, n_steps, derivatives=False):
     """Both packages from the same complex; returns (JAX final states,
     port final states, JAX system, JAX binding, port system, port
-    binding, grid origin, grid counts)."""
+    binding, grid origin, grid counts). ``derivatives``: the derivative
+    path (triquintic grids, Chebyshev packs) instead of the value path."""
     lo = x.min(0) - margin
     spacing = (sp,) * 3
     counts = tuple(int(c) + 1 for c in
                    np.ceil((x.max(0) + margin - lo) / sp))
 
+    method = "TRIQUINTIC" if derivatives else "BSPLINE"
+    basis = "chebyshev" if derivatives else "monomial"
+    # the derivative grids agree to 1e-6 of each slot's max, not 1e-10:
+    # between the cap's passthrough and its saturation 1 - tanh^2, taken
+    # from two libms, multiplies products of large raw derivatives
+    grid_tol = 1e-6 if derivatives else 1e-10
     jpacks, tpacks, scal = [], [], []
     for gt in GRID_TYPES:
         jg = jgridgen.generate_grid(
             counts, spacing, lo, gt, rec_x, rec.charges, rec.sigmas,
-            rec.epsilons, interp_method=JMethod.BSPLINE, backend="jnp",
-            dtype=jnp.float64)
+            rec.epsilons, interp_method=JMethod[method], backend="jnp",
+            compute_derivatives=derivatives, dtype=jnp.float64)
         tg = gridgen.generate_grid(
             counts, spacing, lo, gt, rec_x, rec.charges, rec.sigmas,
-            rec.epsilons, interp_method=InterpolationMethod.BSPLINE,
-            dtype=torch.float64, device="cpu")
-        jv = np.asarray(jg.vals)
-        assert np.abs(tg.vals.numpy() - jv).max() <= 1e-10 * np.abs(jv).max()
+            rec.epsilons, interp_method=InterpolationMethod[method],
+            compute_derivatives=derivatives, dtype=torch.float64,
+            device="cpu")
+        jv = np.asarray(jg.derivs if derivatives else jg.vals)
+        tv = (tg.derivs if derivatives else tg.vals).numpy()
+        axes = (0, 1, 2)
+        assert (np.abs(tv - jv).max(axes)
+                <= grid_tol * np.abs(jv).max(axes)).all()
         jpacks.append(jpacked.pack_grid(JGrid.create(
-            jv, spacing, lo, interp_method=JMethod.BSPLINE,
-            dtype=jnp.float64)))
-        tpacks.append(packed.pack_grid(tg))
+            np.asarray(jg.vals), spacing, lo, derivs=jg.derivs,
+            interp_method=JMethod[method], dtype=jnp.float64),
+            poly_basis=basis))
+        tpacks.append(packed.pack_grid(tg, poly_basis=basis))
         scal.append(gridgen.auto_scaling_factors(gt, lig.charges,
                                                  lig.sigmas, lig.epsilons))
     jmulti = jpacked.combine_packed_grids(jpacks)
@@ -71,10 +85,15 @@ def _run_slice(lig, x, rec, rec_x, margin, sp, n_steps):
         np.asarray(jmulti.coeffs), np.asarray(jmulti.spacing),
         np.asarray(jmulti.origin), counts=jmulti.counts,
         degree=jmulti.degree, n_grids=jmulti.n_grids,
-        back_powers=jmulti.back_powers, oob_k=jmulti.oob_k, device="cpu")
+        back_powers=jmulti.back_powers, oob_k=jmulti.oob_k,
+        poly_basis=jmulti.poly_basis, device="cpu")
     c = conv.coeffs.numpy()
-    np.testing.assert_allclose(tmulti.coeffs.numpy(), c, rtol=1e-9,
-                               atol=1e-12 * np.abs(c).max())
+    if derivatives:
+        np.testing.assert_allclose(tmulti.coeffs.numpy(), c, rtol=0,
+                                   atol=grid_tol * np.abs(c).max())
+    else:
+        np.testing.assert_allclose(tmulti.coeffs.numpy(), c, rtol=1e-9,
+                                   atol=1e-12 * np.abs(c).max())
     scal = np.stack(scal)
     jb = jsystem.GridBinding(grid=jmulti, scaling=jnp.asarray(scal))
     tb = system.GridBinding(grid=tmulti, scaling=torch.from_numpy(scal))
@@ -117,6 +136,37 @@ def test_slice_matches_jax():
     je = [float(jsystem.energy_and_forces(js, [jb], ref.positions[r])[0])
           for r in range(N_REPLICAS)]
     np.testing.assert_allclose(e.numpy(), je, rtol=1e-8)
+
+
+def test_derivative_slice_matches_jax():
+    """The derivative path as a whole: triquintic grids with 27
+    derivatives from both packages, Chebyshev packs (degree 6, 216
+    coefficients per cell and grid), 4 replicas, 100 steps, the same
+    noise. Receptor atoms stand inside the grid box, so it holds points
+    that pass through the cap, capped points and saturated ones. Positions
+    within 1e-8 nm, as on the value path: the grids agree to only 1e-6 of
+    each slot's max where the cap bends them, next to receptor atoms, but
+    the ligand stays in the smooth field, where they agree to rounding."""
+    lig, x, rec, rec_x = chip_smoke.synthetic_complex(
+        6, n_ligand=12, n_receptor=40, gap=0.5)
+    ref, got, js, jb, ts, tb, lo, counts = _run_slice(
+        lig, x, rec, rec_x, margin=0.6, sp=0.15, n_steps=100,
+        derivatives=True)
+    assert tb.grid.degree == 6 and tb.grid.poly_basis == "chebyshev"
+    assert tb.grid.coeffs.shape[1] == 3 * 216
+    assert 1000 < np.prod(counts) < 2500      # a grid of about 12^3
+    hi = lo + (np.array(counts) - 1) * 0.15
+    assert ((rec_x > lo) & (rec_x < hi)).all(1).sum() >= 3
+    moved = np.abs(np.asarray(ref.positions) - x).max()
+    assert moved > 1e-2
+    np.testing.assert_allclose(got.positions.numpy(),
+                               np.asarray(ref.positions), rtol=0, atol=1e-8)
+    e, f = system.energy_and_forces(ts, [tb], got.positions)
+    for r in range(N_REPLICAS):
+        je, jf = jsystem.energy_and_forces(js, [jb], ref.positions[r])
+        np.testing.assert_allclose(float(e[r]), float(je), rtol=1e-8)
+        np.testing.assert_allclose(f[r].numpy(), np.asarray(jf), rtol=0,
+                                   atol=1e-8 * np.abs(np.asarray(jf)).max())
 
 
 def test_slice_matches_jax_through_capped_wells():
