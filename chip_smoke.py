@@ -7,7 +7,10 @@ receptor grids: the value path (grids from the hand-written values kernel,
 cubic B-spline packs) and the derivative path (grids with 27 derivatives
 from the hand-written derivative kernel and the chain rules, triquintic
 Chebyshev packs, Hermite-row packs beside them). Both kernels are built
-from the checkout and held against their plain PyTorch twins first. Every
+from the checkout and held against their plain PyTorch twins first: on
+ragged shapes down to one point and one atom, then at the paths' full
+shapes, where each is timed beside its bound, its launch shape and the
+instruction counts of its atom loop. Every
 phase prints one JSON line; the last line is {"ok": true, "device": {...}}.
 Any failed gate raises and the script exits non-zero. Without a CUDA device
 it exits non-zero and prints no result.
@@ -46,10 +49,16 @@ H100_BYTES_PER_S = 3.35e12
 # rsqrt runs on the special-function (MUFU) pipe: 16 results per SM per
 # clock against 256 FP32 operations (128 FMA lanes), so 1/16 of the peak
 H100_MUFU_PER_S = H100_FP32_FLOPS / 16
-# FP32 operations per point-atom pair of the gridgen kernel: 3 subtractions,
-# 5 for r^2, the clamp, the rsqrt, the power (0, 4 or 3 multiplies), the
-# multiply by K and the add into the sum
-GRIDGEN_OPS_PER_PAIR = {"charge": 12, "ljr": 16, "lja": 15}
+# FP32 operations that the values kernel's function needs, with the work
+# shared along z (the points of one z-column share dx, dy and dx^2 + dy^2
+# for an atom). Per point-atom pair: dz, dz^2 + (dx^2 + dy^2) (2), the
+# clamp, the rsqrt (charge) or the reciprocal that gives 1/r^2 (ljr, lja),
+# the power (0, 3 or 2 multiplies), the multiply by K and the add into the
+# sum. Per column-atom pair: 2 subtractions and 3 for dx^2 + dy^2. (One
+# point per thread and every power from the rsqrt, as counted before the
+# kernel tiled z, was 12 / 16 / 15.)
+GRIDGEN_OPS_PER_PAIR = {"charge": 7, "ljr": 10, "lja": 9}
+GRIDGEN_OPS_PER_COLUMN_ATOM = 5
 # FP32 operations per pair that the derivative kernel's function needs,
 # every multiply, add, subtract and max counted once (an FMA is two), with
 # the work shared: 3 for the displacement, 6 for the clamped r^2, 0 / 4 / 3
@@ -57,11 +66,23 @@ GRIDGEN_OPS_PER_PAIR = {"charge": 12, "ljr": 16, "lja": 15}
 # n = 1..6, 15 for the cascade combinations (each folds to one constant of
 # the grid type times K / r^(m+n)), 6 direction cosines and squares, 81
 # for the 27 terms with every direction product formed once, and 27 to add
-# them in. tests/test_torch_package.py holds a formulation of exactly this
-# cost against the plain twin's values and traces its operations against
-# this table. The kernel and its twin do not share the cascade: as written
-# they cost 287 / 298 / 292.
+# them in. This is the cost of the package's plain twin
+# (ops/cuda_gridgen_derivs.py::pair_derivative_terms), which
+# tests/test_torch_package.py traces against this table.
 DERIVS_OPS_PER_PAIR = {"charge": 145, "ljr": 149, "lja": 148}
+# Kernel times per grid (charge, ljr, lja) before both kernels were
+# redesigned: one point per thread, the cascade unfolded. NVIDIA H100 80GB
+# HBM3, 700.00 W, this script's kernel_check at the same shapes.
+PREVIOUS_MS = {
+    "gridgen_values": {"charge": 7.005, "ljr": 8.717, "lja": 7.880},
+    "gridgen_derivs": {"charge": 100.945, "ljr": 103.532, "lja": 100.243}}
+# Ragged shapes for both kernels: grids and atom counts that are multiples
+# of no tile, block or partial, down to one point and one atom
+RAGGED_COUNTS = ((1, 1, 1), (2, 3, 5), (5, 7, 3), (3, 4, 130))
+RAGGED_ATOMS = (1, 7, 129, 300)
+RAGGED_SPACING = (0.03, 0.035, 0.025)
+RAGGED_ORIGIN = (0.0, -0.2, 0.3)
+RAGGED_CAP = 800.0
 N_DERIV_SLOTS = 27
 DERIV_CHECK_PLANES = 3   # x-planes at each of the grid's start, middle, end
 FAR_FIELD = 0.3          # nm from every receptor atom
@@ -293,7 +314,7 @@ def phase_device(torch):
           "nvidia_smi": smi, "sm_count": props.multi_processor_count,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "allow_tf32": {"matmul": False, "cudnn": False}})
-    return smi
+    return smi, props.multi_processor_count
 
 
 def phase_build():
@@ -315,8 +336,210 @@ def phase_build():
                   f"{name} spills registers: {ln}")
 
 
-def phase_kernel_check(torch, rec, rec_crd, counts, origin):
+def _sm_clock_under_load(torch, fn, launches=20):
+    """The SM clock in MHz as nvidia-smi reads it while ``launches`` calls
+    of ``fn`` are queued on the card (a diagnostic: the bounds assume the
+    data sheet's boost clock)."""
+    for _ in range(launches):
+        fn()
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60)
+    torch.cuda.synchronize()
+    fields = out.stdout.strip().splitlines()[0].split(",") if (
+        out.returncode == 0 and out.stdout.strip()) else []
+    try:
+        return {"sm_mhz": float(fields[0]), "max_sm_mhz": float(fields[1])}
+    except (IndexError, ValueError):
+        return {"sm_mhz": None, "max_sm_mhz": None,
+                "note": "nvidia-smi gave no clocks"}
+
+
+def _launch_facts(name, module, counts, grid_type, sm_count):
+    """What a kernel_check line says about the launch beside its time:
+    registers per thread (ptxas), blocks, resident blocks per SM (the CUDA
+    runtime's occupancy query), and the waves the grid makes of them."""
+    from openmmgridforce_tpu_torch import cuda_build
+
+    code = GRID_TYPES.index(grid_type)
+    registers = [r for entry, r in cuda_build.kernel_registers(name).items()
+                 if f"kernelILi{code}E" in entry]
+    check(len(registers) == 1, f"{name}: no register count for {grid_type}")
+    shape = module.launch_shape(counts, grid_type)
+    return {"registers": registers[0], "blocks": shape["blocks"],
+            "threads": shape["threads"],
+            "blocks_per_sm": shape["blocks_per_sm"],
+            "waves": shape["blocks"] / (shape["blocks_per_sm"] * sm_count)}
+
+
+_SASS_KINDS = ("FFMA", "FMUL", "FADD", "MUFU", "LDS")
+
+
+def inner_loop_counts(sass_text):
+    """Per kernel of a ``cuobjdump -sass`` listing, the instructions of
+    its hottest loop by kind: of the innermost loops (a backward branch
+    with no other backward branch inside) that hold a MUFU instruction
+    (one rsqrt or reciprocal per pair), the one with the most of them,
+    which is the unrolled atom loop. Returns {function: {"instructions",
+    kinds..., "other", "other_by_opcode", "per_pair"}}; a function without
+    such a loop is left out."""
+    out, name, code = {}, None, []
+
+    def close():
+        if name is None:
+            return
+        spans = [(tgt, at) for at, (op, tgt) in enumerate(code)
+                 if tgt is not None and tgt <= at]
+        best = None
+        for lo, hi in spans:
+            if any((a, b) != (lo, hi) and lo <= a and b <= hi
+                   for a, b in spans):
+                continue
+            ops = [op for op, _ in code[lo:hi + 1]]
+            n_mufu = sum(op.startswith("MUFU") for op in ops)
+            if n_mufu and (best is None or n_mufu > best[0]):
+                best = (n_mufu, ops)
+        if best is None:
+            return
+        n_mufu, ops = best
+        kinds = {k: sum(op.split(".")[0] == k for op in ops)
+                 for k in _SASS_KINDS}
+        other = {}
+        for op in ops:
+            if op.split(".")[0] not in _SASS_KINDS:
+                other[op.split(".")[0]] = other.get(op.split(".")[0], 0) + 1
+        out[name] = {"instructions": len(ops), **kinds,
+                     "other": len(ops) - sum(kinds.values()),
+                     "other_by_opcode": other,
+                     "per_pair": len(ops) / n_mufu}
+
+    addr_index = {}
+    for line in sass_text.splitlines():
+        found = re.search(r"Function : (\S+)", line)
+        if found:
+            close()
+            name, code, addr_index = found.group(1), [], {}
+            continue
+        found = re.match(
+            r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)"
+            r"([^;]*);", line)
+        if not found or name is None:
+            continue
+        addr, op, operands = found.groups()
+        addr_index[int(addr, 16)] = len(code)
+        target = None
+        if op.split(".")[0] == "BRA":
+            hexes = re.findall(r"0x([0-9a-f]+)", operands)
+            if hexes:
+                # a backward target is already indexed; a forward one is
+                # not and stays None
+                target = addr_index.get(int(hexes[-1], 16))
+        code.append((op, target))
+    close()
+    return out
+
+
+def phase_sass():
+    """A diagnostic, gating nothing: instruction counts of each kernel's
+    atom loop, from cuobjdump where the toolkit has it."""
+    from openmmgridforce_tpu_torch import cuda_build
+
+    for name in cuda_build.LIBRARIES:
+        text = cuda_build.sass(name)
+        if text is None:
+            emit({"phase": "sass", "kernel": name,
+                  "note": "no cuobjdump beside nvcc"})
+            continue
+        loops = inner_loop_counts(text)
+        per_type = {}
+        for entry, counts in loops.items():
+            for code, gt in enumerate(GRID_TYPES):
+                if f"kernelILi{code}E" in entry:
+                    per_type[gt] = counts
+        emit({"phase": "sass", "kernel": name,
+              "inner_loop_per_grid_type": per_type or
+              "no loop with a MUFU instruction found in the listing"})
+
+
+def ragged_case(grid_type, counts, n_atoms, seed=53, device="cpu",
+                dtype=None):
+    """The atom table [A, 4] of one ragged-shape case: seeded atoms in and
+    around the box of RAGGED_SPACING x counts at RAGGED_ORIGIN."""
+    import torch
+    from openmmgridforce_tpu_torch.ops.gridgen import receptor_atoms
+
+    rng = np.random.default_rng([seed, n_atoms, *counts])
+    lo = np.array(RAGGED_ORIGIN) - 0.3
+    hi = (np.array(RAGGED_ORIGIN)
+          + np.array(RAGGED_SPACING) * (np.array(counts) - 1) + 0.3)
+    return receptor_atoms(
+        grid_type, rng.uniform(lo, hi, (n_atoms, 3)),
+        rng.uniform(-1, 1, n_atoms), rng.uniform(0.2, 0.35, n_atoms),
+        rng.uniform(0.1, 1.0, n_atoms), dtype=dtype or torch.float32,
+        device=device)
+
+
+def phase_ragged(torch):
+    """Both kernels against their twins on RAGGED_COUNTS x RAGGED_ATOMS,
+    every grid type, at the gates of the big checks; and the values kernel
+    exactly at the cap on an atom that sits on each grid's last point."""
+    from openmmgridforce_tpu_torch.ops.cuda_gridgen import (
+        gridgen_values, gridgen_values_plain)
+    from openmmgridforce_tpu_torch.ops.cuda_gridgen_derivs import (
+        gridgen_derivs, gridgen_derivs_plain)
+
+    worst = {"gridgen_values": 0.0, "gridgen_derivs_f32": 0.0,
+             "gridgen_derivs_f64": 0.0}
+    cases, misses = 0, []
+    for counts in RAGGED_COUNTS:
+        geom = (counts, RAGGED_SPACING, RAGGED_ORIGIN)
+        for n_atoms in RAGGED_ATOMS:
+            for gt in GRID_TYPES:
+                atoms = ragged_case(gt, counts, n_atoms, device="cuda")
+                where = f"{gt} {counts} x {n_atoms} atoms"
+                got = gridgen_values(atoms, *geom, gt, RAGGED_CAP)
+                ref = gridgen_values_plain(atoms, *geom, gt, RAGGED_CAP)
+                ok = (got.shape == ref.shape == counts
+                      and bool(torch.isfinite(got).all()))
+                err = float((got - ref).abs().max() / ref.abs().max())
+                worst["gridgen_values"] = max(worst["gridgen_values"], err)
+                if not ok or not err < 1e-5:
+                    misses.append(f"gridgen_values {where}: {err}")
+                got = gridgen_derivs(atoms, *geom, gt)
+                ref = gridgen_derivs_plain(atoms, *geom, gt)
+                ref64 = gridgen_derivs_plain(atoms.double(), *geom, gt)
+                ok = (got.shape == counts + (N_DERIV_SLOTS,)
+                      and bool(torch.isfinite(got).all()))
+                got = got.reshape(-1, N_DERIV_SLOTS)
+                e32 = float(_slot_err(got, ref).max())
+                e64 = float(_slot_err(got, ref64).max())
+                worst["gridgen_derivs_f32"] = max(
+                    worst["gridgen_derivs_f32"], e32)
+                worst["gridgen_derivs_f64"] = max(
+                    worst["gridgen_derivs_f64"], e64)
+                if not ok or not e32 < 5e-5 or not e64 < 2e-4:
+                    misses.append(f"gridgen_derivs {where}: {e32} {e64}")
+                cases += 1
+        # an ljr atom on the grid's last point: exactly the cap there
+        last = [c - 1 for c in counts]
+        point = (torch.tensor(RAGGED_ORIGIN)
+                 + torch.tensor(last) * torch.tensor(RAGGED_SPACING))
+        on_atom = torch.cat([point, torch.ones(1)])[None].to("cuda")
+        val = float(gridgen_values(on_atom, *geom, "ljr",
+                                   RAGGED_CAP)[tuple(last)])
+        if val != RAGGED_CAP:
+            misses.append(f"cap on the last point of {counts}: {val}")
+    torch.cuda.synchronize()
+    emit({"phase": "ragged_shapes", "counts": RAGGED_COUNTS,
+          "atoms": RAGGED_ATOMS, "cases_per_kernel": cases,
+          "worst_rel_err": worst, "misses": misses})
+    check(not misses, f"ragged shapes: {misses}")
+
+
+def phase_kernel_check(torch, rec, rec_crd, counts, origin, sm_count):
     """The kernel against its plain twin at the main path's shapes."""
+    from openmmgridforce_tpu_torch.ops import cuda_gridgen
     from openmmgridforce_tpu_torch.ops.cuda_gridgen import (
         gridgen_values, gridgen_values_plain)
     from openmmgridforce_tpu_torch.ops.gridgen import receptor_atoms
@@ -336,16 +559,22 @@ def phase_kernel_check(torch, rec, rec_crd, counts, origin):
         ms = _cuda_ms(torch, lambda: gridgen_values(*args), 5)
         plain_ms = _cuda_ms(torch, lambda: gridgen_values_plain(*args), 1)
         pairs = n_points * atoms.shape[0]
-        bounds = {"fp32": pairs * GRIDGEN_OPS_PER_PAIR[gt] / H100_FP32_FLOPS,
+        columns = counts[0] * counts[1] * atoms.shape[0]
+        bounds = {"fp32": (pairs * GRIDGEN_OPS_PER_PAIR[gt]
+                           + columns * GRIDGEN_OPS_PER_COLUMN_ATOM)
+                  / H100_FP32_FLOPS,
                   "mufu": pairs / H100_MUFU_PER_S,
                   "bytes": (atoms.numel() + n_points) * 4 / H100_BYTES_PER_S}
         bound_pipe = max(bounds, key=bounds.get)
         per_type[gt] = {"max_abs_err": err, "max_abs_ref": scale,
                         "rel_err": err / scale, "ms": ms,
+                        "previous_ms": PREVIOUS_MS["gridgen_values"][gt],
                         "plain_ms": plain_ms,
                         "bound_ms": 1e3 * bounds[bound_pipe],
                         "bound_pipe": bound_pipe, "pairs": pairs,
-                        "gpairs_per_s": pairs / ms / 1e6}
+                        "gpairs_per_s": pairs / ms / 1e6,
+                        **_launch_facts("gridgen_values", cuda_gridgen,
+                                        counts, gt, sm_count)}
         del got, ref
 
     # a grid point exactly on an atom caps at exactly grid_cap
@@ -370,10 +599,12 @@ def _slot_err(got, ref, rows=None):
     return num / ref.double().abs().amax(0).clamp_min(1e-300)
 
 
-def phase_kernel_check_derivs(torch, rec, rec_crd, counts, origin):
+def phase_kernel_check_derivs(torch, rec, rec_crd, counts, origin,
+                              sm_count):
     """The derivative kernel against its plain twin at the main path's
     atoms and grid: the float32 twin over the whole grid, the float64 twin
     over slabs of x-planes at the grid's start, middle and end."""
+    from openmmgridforce_tpu_torch.ops import cuda_gridgen_derivs
     from openmmgridforce_tpu_torch.ops.cuda_gridgen import (
         grid_point_positions)
     from openmmgridforce_tpu_torch.ops.cuda_gridgen_derivs import (
@@ -434,15 +665,19 @@ def phase_kernel_check_derivs(torch, rec, rec_crd, counts, origin):
                                                ref32[slab_rows], far).max()),
             "far_rel_err_f64": float(_slot_err(got[slab_rows], ref64,
                                                far).max()),
-            "ms": ms, "plain_ms": plain_ms,
+            "ms": ms, "previous_ms": PREVIOUS_MS["gridgen_derivs"][gt],
+            "plain_ms": plain_ms,
             "bound_ms": 1e3 * bounds[bound_pipe], "bound_pipe": bound_pipe,
             "pairs": pairs, "gpairs_per_s": pairs / ms / 1e6,
-            "tflops": pairs * DERIVS_OPS_PER_PAIR[gt] / ms / 1e9}
+            "tflops": pairs * DERIVS_OPS_PER_PAIR[gt] / ms / 1e9,
+            **_launch_facts("gridgen_derivs", cuda_gridgen_derivs, counts,
+                            gt, sm_count)}
         del got, ref32, ref64
+    clock = _sm_clock_under_load(torch, lambda: gridgen_derivs(*args))
     emit({"phase": "kernel_check", "kernel": "gridgen_derivs",
           "counts": counts, "atoms": int(rec_crd.shape[0]),
           "f64_slab_points": int(slab_rows.numel()),
-          "per_grid_type": per_type})
+          "clock_under_load": clock, "per_grid_type": per_type})
     for gt, r in per_type.items():
         check(r["rel_err_f32"] < 5e-5, f"gridgen_derivs {gt}: slot "
               f"{r['rel_err_f32_slot']} is {r['rel_err_f32']} from the "
@@ -726,17 +961,20 @@ def main(argv=None):
     # outside a checkout of the repository this fails before any output
     import openmmgridforce_tpu_torch  # noqa: F401
 
-    smi = phase_device(torch)
+    smi, sm_count = phase_device(torch)
     phase_build()
+    phase_sass()
+    phase_ragged(torch)
 
     lig, lig_crd, rec, rec_crd = synthetic_complex(args.seed)
     counts, origin = grid_box(lig_crd)
     complex_ = (lig, lig_crd, rec, rec_crd, counts, origin)
     checks = {
         "gridgen_values": phase_kernel_check(torch, rec, rec_crd, counts,
-                                             origin),
+                                             origin, sm_count),
         "gridgen_derivs": phase_kernel_check_derivs(torch, rec, rec_crd,
-                                                    counts, origin)}
+                                                    counts, origin,
+                                                    sm_count)}
     launches = {}
     system, binding, _, states, launches["gridgen_values"] = \
         phase_main_path(torch, args.seed, *complex_)

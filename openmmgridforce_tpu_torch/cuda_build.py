@@ -12,6 +12,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -56,6 +57,32 @@ def build_log(name: str) -> str:
     """nvcc's output (ptxas registers and spills) from the last build."""
     log = library_path(name).with_suffix(".log")
     return log.read_text() if log.exists() else ""
+
+
+def kernel_registers(name: str) -> dict:
+    """Registers per thread of each kernel of the library, from the last
+    build's ptxas output: {mangled entry function: registers}."""
+    out, entry = {}, None
+    for line in build_log(name).splitlines():
+        found = re.search(r"Compiling entry function '([^']+)'", line)
+        if found:
+            entry = found.group(1)
+        found = re.search(r"Used (\d+) registers", line)
+        if found and entry is not None:
+            out[entry] = int(found.group(1))
+            entry = None
+    return out
+
+
+def sass(name: str) -> str | None:
+    """The built library's machine code as ``cuobjdump -sass`` prints it,
+    or None where the toolkit has no cuobjdump beside nvcc."""
+    tool = Path(nvcc_path()).with_name("cuobjdump")
+    if not tool.exists():
+        return None
+    return subprocess.run([str(tool), "-sass", str(library_path(name))],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
 
 
 def build(names=None) -> dict:

@@ -1,0 +1,180 @@
+"""Time build-time variants of the two grid-generation kernels on the card.
+
+The kernels' design choices are constants at the top of their sources
+(points per thread, threads per block, atoms per partial, unroll depth) and
+a few lines of arithmetic. This script compiles copies of a source with
+some of them replaced, runs every copy on the full-size synthetic complex
+of ``chip_smoke.py`` and prints one JSON line per variant: registers,
+milliseconds per grid type, and the error against the plain twin (float32
+over the whole grid for the values kernel, float64 over slabs of x-planes
+for the derivative kernel). The first variant of each kernel is the source
+as it stands. It changes nothing in the package: it is how the shipped
+constants were chosen, and how to choose them again on another card.
+
+    python -m openmmgridforce_tpu_torch.kernel_variants [values] [derivs]
+
+(from the repository root, which holds ``chip_smoke.py``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import json
+import re
+import subprocess
+import sys
+
+from . import cuda_build
+
+# (label, {constant: value}, [(old text, new text), ...]) per kernel
+VARIANTS = {
+    "gridgen_values": [
+        ("as shipped", {}, []),
+        ("1 point per thread", {"kPoints": 1}, []),
+        ("2 points per thread", {"kPoints": 2}, []),
+        ("8 points per thread", {"kPoints": 8, "kMinBlocks": 8}, []),
+        ("64 threads per block", {"kThreads": 64, "kMinBlocks": 20}, []),
+        ("256 threads per block", {"kThreads": 256, "kMinBlocks": 5}, []),
+        ("atom loop not unrolled", {"kUnroll": 1}, []),
+        ("atom loop unrolled by 2", {"kUnroll": 2}, []),
+        ("no room asked of the register allocator", {"kMinBlocks": 1}, []),
+        ("partials of 32 atoms", {"kAtomBlock": 32}, []),
+        ("tiles and partials of 512 atoms",
+         {"kTile": 512, "kAtomBlock": 512}, []),
+        # 1/r^2 by squaring an rsqrt instead of one reciprocal: a multiply
+        # more for the two Lennard-Jones types
+        ("1/r^2 from the rsqrt", {}, [
+            ("const float inv_r2 = rcp_approx(r2);",
+             "const float inv_r = rsqrt_approx(r2);\n"
+             "            const float inv_r2 = inv_r * inv_r;")]),
+    ],
+    "gridgen_derivs": [
+        ("as shipped", {}, []),
+        ("partials of 8 atoms", {"kAtomBlock": 8}, []),
+        ("partials of 128 atoms", {"kAtomBlock": 128}, []),
+        ("atom loop not unrolled", {"kUnroll": 1}, []),
+        ("atom loop unrolled by 4", {"kUnroll": 4}, []),
+        ("at least 4 blocks per SM", {}, [
+            ("__launch_bounds__(kThreads)\ngridgen_derivs_kernel",
+             "__launch_bounds__(kThreads, 4)\ngridgen_derivs_kernel")]),
+    ],
+}
+
+
+def variant_source(name: str, constants: dict, edits: list) -> str:
+    """The kernel's source with the named constants and texts replaced;
+    raises if a replacement does not apply exactly once."""
+    (src,) = cuda_build.LIBRARIES[name]
+    text = (cuda_build.CSRC / src).read_text()
+    for const, value in constants.items():
+        text, n = re.subn(rf"(constexpr int {const} = )\d+;",
+                          rf"\g<1>{int(value)};", text)
+        if n != 1:
+            raise ValueError(f"{name}: constant {const} found {n} times")
+    for old, new in edits:
+        if text.count(old) != 1:
+            raise ValueError(f"{name}: {old!r} found {text.count(old)} "
+                             "times")
+        text = text.replace(old, new)
+    return text
+
+
+def _build_all(name: str):
+    """Compiles every variant of the kernel, all nvcc processes started
+    together. Returns [(label, library path, build log)]."""
+    out_dir = cuda_build.BUILD_DIR / "variants"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    jobs = []
+    for label, constants, edits in VARIANTS[name]:
+        text = variant_source(name, constants, edits)
+        stem = f"{name}-{hashlib.sha256(text.encode()).hexdigest()[:12]}"
+        cu, so = out_dir / f"{stem}.cu", out_dir / f"lib{stem}.so"
+        cu.write_text(text)
+        proc = subprocess.Popen(
+            [cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS, "-o", str(so),
+             str(cu)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)
+        jobs.append((label, so, proc))
+    built = []
+    for label, so, proc in jobs:
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"{name} [{label}]: nvcc failed:\n{log}")
+        built.append((label, so, log))
+    return built
+
+
+def _registers(log: str) -> list:
+    return [int(r) for r in re.findall(r"Used (\d+) registers", log)]
+
+
+def main(argv=None) -> int:
+    import torch
+
+    import chip_smoke as cs
+    from .ops import cuda_gridgen, cuda_gridgen_derivs
+    from .ops.gridgen import receptor_atoms
+
+    wanted = [f"gridgen_{a}" for a in (argv or sys.argv[1:])] \
+        or list(VARIANTS)
+    if not torch.cuda.is_available():
+        print("kernel_variants: no CUDA device is available",
+              file=sys.stderr)
+        return 2
+    smi, _ = cs.phase_device(torch)
+    _, lig_crd, rec, rec_crd = cs.synthetic_complex(0)
+    counts, origin = cs.grid_box(lig_crd)
+    spacing = (cs.SPACING,) * 3
+    nyz = counts[1] * counts[2]
+    slabs = [(x0 * nyz, (x0 + 2) * nyz)
+             for x0 in (0, counts[0] // 2, counts[0] - 2)]
+    rows = torch.cat([torch.arange(a, b, device="cuda") for a, b in slabs])
+    atoms = {gt: receptor_atoms(gt, rec_crd, rec.charges, rec.sigmas,
+                                rec.epsilons, device="cuda")
+             for gt in cs.GRID_TYPES}
+    modules = {"gridgen_values": cuda_gridgen,
+               "gridgen_derivs": cuda_gridgen_derivs}
+    for name in wanted:
+        module = modules[name]
+        if name == "gridgen_values":
+            refs = {gt: module.gridgen_values_plain(
+                atoms[gt], counts, spacing, origin, gt, cs.GRID_CAP)
+                for gt in cs.GRID_TYPES}
+        else:
+            refs = {gt: torch.cat([module.gridgen_derivs_plain(
+                atoms[gt].double(), counts, spacing, origin, gt, start=a,
+                stop=b) for a, b in slabs]) for gt in cs.GRID_TYPES}
+        for label, so, log in _build_all(name):
+            # the wrapper calls whatever library its module's _library gives
+            lib = module._declare(ctypes.CDLL(str(so)))
+            module._library = lambda lib=lib: lib
+            line = {"kernel": name, "variant": label,
+                    "registers": _registers(log),
+                    "spill_bytes": sum(int(b) for b in re.findall(
+                        r"(\d+) bytes spill", log)),
+                    "ms": {}, "rel_err": {}, "shape": {}}
+            for gt in cs.GRID_TYPES:
+                if name == "gridgen_values":
+                    args = (atoms[gt], counts, spacing, origin, gt,
+                            cs.GRID_CAP)
+                    got = module.gridgen_values(*args)
+                    err = float((got - refs[gt]).abs().max()
+                                / refs[gt].abs().max())
+                    call = lambda: module.gridgen_values(*args)  # noqa: E731
+                else:
+                    args = (atoms[gt], counts, spacing, origin, gt)
+                    got = module.gridgen_derivs(*args).reshape(-1, 27)
+                    err = float(cs._slot_err(got[rows], refs[gt]).max())
+                    call = lambda: module.gridgen_derivs(*args)  # noqa: E731
+                line["rel_err"][gt] = err
+                line["ms"][gt] = cs._cuda_ms(torch, call, 3)
+                line["shape"][gt] = module.launch_shape(counts, gt)
+                del got
+            print(json.dumps(line), flush=True)
+    print(smi, flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -74,21 +74,51 @@ def gridgen_values_plain(atoms, counts, spacing, origin, grid_type: str,
     return out.reshape(counts)
 
 
-@functools.cache
-def _library():
-    """The kernel's shared library, built at first use, with its C entry
-    points declared."""
-    from .. import cuda_build
-
-    lib = cuda_build.load("gridgen_values")
+def _declare(lib):
+    """Declares the C entry points of the kernel's shared library."""
     fn = lib.gridgen_values_launch
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
                    + [ctypes.c_int] * 3 + [ctypes.c_float] * 7
                    + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    shape = lib.gridgen_values_launch_shape
+    shape.argtypes = [ctypes.c_int] * 5 + [
+        ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_int),
+        ctypes.POINTER(ctypes.c_int)]
+    shape.restype = ctypes.c_int
     lib.gridgen_values_error_string.argtypes = [ctypes.c_int]
     lib.gridgen_values_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.cache
+def _library():
+    """The kernel's shared library, built at first use."""
+    from .. import cuda_build
+
+    return _declare(cuda_build.load("gridgen_values"))
+
+
+def _launch_shape(lib, name: str, counts, grid_type: str, device) -> dict:
+    blocks = ctypes.c_longlong()
+    threads, per_sm = ctypes.c_int(), ctypes.c_int()
+    err = getattr(lib, name + "_launch_shape")(
+        *(int(c) for c in counts), GRID_TYPE_CODES[grid_type], int(device),
+        ctypes.byref(blocks), ctypes.byref(threads), ctypes.byref(per_sm))
+    if err:
+        raise RuntimeError(
+            f"{name}_launch_shape failed: "
+            + getattr(lib, name + "_error_string")(err).decode())
+    return {"blocks": blocks.value, "threads": threads.value,
+            "blocks_per_sm": per_sm.value}
+
+
+def launch_shape(counts, grid_type: str, device=0) -> dict:
+    """How the kernel is launched for a grid of ``counts`` points: blocks,
+    threads per block, and the blocks one SM holds at a time (asked of the
+    CUDA runtime). Builds the library at first use; needs the card."""
+    return _launch_shape(_library(), "gridgen_values", counts, grid_type,
+                         device)
 
 
 def gridgen_values(atoms, counts, spacing, origin, grid_type: str,

@@ -20,38 +20,80 @@ import functools
 
 import torch
 
-from .cuda_gridgen import grid_point_positions
+from .cuda_gridgen import _launch_shape, grid_point_positions
 from .derivatives27 import N_DERIVS
-from .radial import FIELD_POWERS, GRID_TYPE_CODES, cartesian_terms
+from .radial import FIELD_POWERS, GRID_TYPE_CODES
 
 R2_MIN_DERIVS = 4e-4    # nm^2: r >= 0.02 nm on the derivative path
 _PAIR_BLOCK = 1 << 23   # points x atoms per chunk of the plain twin
 
 
+def folded_constants(grid_type: str):
+    """(m, (t_1, ..., t_6)) of the grid type's field K / r^m. Every radial
+    combination of the Cartesian cascade (``radial.cartesian_terms``) is
+    one of these constants times K / r^(m+n) for a pure power law:
+    A_n = t_n P_n, B_n = t_(n-1) P_n, C_n = t_(n-2) P_n, D_6 = t_3 P_6 and
+    dU = t_1 P_1, with t_n = (-1)^n m (m+2) ... (m+2n-2)."""
+    m, _ = FIELD_POWERS[grid_type]
+    t, out = 1, []
+    for n in range(1, 7):
+        t *= -(m + 2 * n - 2)
+        out.append(float(t))
+    return m, tuple(out)
+
+
 def pair_derivative_terms(dx, dy, dz, K, grid_type: str):
-    """The 27 derivative terms of K / r^m at displacement (dx, dy, dz), as
-    the kernel forms them: one rsqrt of the clamped r^2, powers of 1/r by
-    repeated multiplication. Returns a list of 27 tensors."""
-    m, coefs = FIELD_POWERS[grid_type]
+    """The 27 derivative terms of K / r^m at displacement (dx, dy, dz), in
+    the folded formulation the kernel computes: one rsqrt of the clamped
+    r^2, 1/r^m by squarings, P_n = K / r^(m+n) by a chain of multiplies by
+    1/r, every cascade combination one constant times P_n, and each product
+    of direction cosines formed once. (The kernel carries the constants
+    inside its FMAs; here each costs a multiply.) Returns a list of 27
+    tensors."""
+    m, (t1, t2, t3, t4, t5, t6) = folded_constants(grid_type)
     r2 = (dx * dx + dy * dy + dz * dz).clamp_min(R2_MIN_DERIVS)
     inv_r = torch.rsqrt(r2)
     inv_rm = inv_r
-    for _ in range(m - 1):
-        inv_rm = inv_rm * inv_r
-    base = K * inv_rm
-    i2 = inv_r * inv_r
-    i3 = i2 * inv_r
-    i4 = i2 * i2
-    i5 = i4 * inv_r
-    i6 = i4 * i2
-    rad = (base,
-           coefs[1] * base * inv_r,
-           coefs[2] * base * i2,
-           coefs[3] * base * i3,
-           coefs[4] * base * i4,
-           coefs[5] * base * i5,
-           coefs[6] * base * i6)
-    return cartesian_terms(dx, dy, dz, inv_r, i2, i3, i4, i5, *rad)
+    if m > 1:
+        i2 = inv_r * inv_r
+        i3 = i2 * inv_r
+        inv_rm = i3 * i3
+    if m == 12:
+        inv_rm = inv_rm * inv_rm
+    P0 = K * inv_rm
+    P1 = P0 * inv_r
+    P2 = P1 * inv_r
+    P3 = P2 * inv_r
+    P4 = P3 * inv_r
+    P5 = P4 * inv_r
+    P6 = P5 * inv_r
+    dU, dUr, A2 = t1 * P1, t1 * P2, t2 * P2
+    A3, B3 = t3 * P3, t2 * P3
+    A4, B4, C4 = t4 * P4, t3 * P4, t2 * P4
+    A5, B5, C5 = t5 * P5, t4 * P5, t3 * P5
+    A6, B6, C6, D6 = t6 * P6, t5 * P6, t4 * P6, t3 * P6
+    nx, ny, nz = dx * inv_r, dy * inv_r, dz * inv_r
+    nx2, ny2, nz2 = nx * nx, ny * ny, nz * nz
+    xy, xz, yz = nx * ny, nx * nz, ny * nz
+    Gx, Gy, Gz = A3 * nx2 + B3, A3 * ny2 + B3, A3 * nz2 + B3
+    qxy, qxz, qyz = nx2 * ny2, nx2 * nz2, ny2 * nz2
+    sxy, sxz, syz = nx2 + ny2, nx2 + nz2, ny2 + nz2
+    Hx, Hy, Hz = A4 * nx2 + B4, A4 * ny2 + B4, A4 * nz2 + B4
+    return [
+        P0, dU * nx, dU * ny, dU * nz,
+        A2 * nx2 + dUr, A2 * xy, A2 * xz, A2 * ny2 + dUr, A2 * yz,
+        A2 * nz2 + dUr,
+        Gx * ny, Gx * nz, Gy * nx, A3 * (xy * nz), Gy * nz, Gz * nx,
+        Gz * ny,
+        A4 * qxy + (B4 * sxy + C4), A4 * qxz + (B4 * sxz + C4),
+        A4 * qyz + (B4 * syz + C4),
+        Hx * yz, Hy * xz, Hz * xy,
+        (A5 * qxy + (B5 * sxy + C5)) * nz,
+        (A5 * qxz + (B5 * sxz + C5)) * ny,
+        (A5 * qyz + (B5 * syz + C5)) * nx,
+        A6 * (qxy * nz2) + (B6 * (qxy + qxz + qyz)
+                            + (C6 * (sxy + nz2) + D6)),
+    ]
 
 
 def gridgen_derivs_plain(atoms, counts, spacing, origin, grid_type: str,
@@ -88,21 +130,37 @@ def gridgen_derivs_plain(atoms, counts, spacing, origin, grid_type: str,
     return out
 
 
-@functools.cache
-def _library():
-    """The kernel's shared library, built at first use, with its C entry
-    points declared."""
-    from .. import cuda_build
-
-    lib = cuda_build.load("gridgen_derivs")
+def _declare(lib):
+    """Declares the C entry points of the kernel's shared library."""
     fn = lib.gridgen_derivs_launch
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
                    + [ctypes.c_int] * 3 + [ctypes.c_float] * 6
                    + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    shape = lib.gridgen_derivs_launch_shape
+    shape.argtypes = [ctypes.c_int] * 5 + [
+        ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_int),
+        ctypes.POINTER(ctypes.c_int)]
+    shape.restype = ctypes.c_int
     lib.gridgen_derivs_error_string.argtypes = [ctypes.c_int]
     lib.gridgen_derivs_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.cache
+def _library():
+    """The kernel's shared library, built at first use."""
+    from .. import cuda_build
+
+    return _declare(cuda_build.load("gridgen_derivs"))
+
+
+def launch_shape(counts, grid_type: str, device=0) -> dict:
+    """How the kernel is launched for a grid of ``counts`` points: blocks,
+    threads per block, and the blocks one SM holds at a time (asked of the
+    CUDA runtime). Builds the library at first use; needs the card."""
+    return _launch_shape(_library(), "gridgen_derivs", counts, grid_type,
+                         device)
 
 
 def gridgen_derivs(atoms, counts, spacing, origin, grid_type: str):

@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from openmmgridforce_tpu_torch.ops import (cuda_gridgen, cuda_gridgen_derivs,
                                            gridgen)
 
@@ -53,6 +54,37 @@ def test_cap_on_atom_and_dtype_rules(cuda):
                               dtype=torch.float64, device=cuda)
 
 
+@pytest.mark.parametrize("n_atoms", chip_smoke.RAGGED_ATOMS)
+@pytest.mark.parametrize("counts", chip_smoke.RAGGED_COUNTS)
+def test_values_kernel_on_ragged_shapes(cuda, counts, n_atoms):
+    """Grids and atom counts that are multiples of no tile, block or
+    partial, down to one point and one atom: 1e-5 of the twin's largest
+    value, every grid type."""
+    geom = (counts, chip_smoke.RAGGED_SPACING, chip_smoke.RAGGED_ORIGIN)
+    for grid_type in chip_smoke.GRID_TYPES:
+        atoms = chip_smoke.ragged_case(grid_type, counts, n_atoms,
+                                       device=cuda)
+        args = (atoms, *geom, grid_type, chip_smoke.RAGGED_CAP)
+        got = cuda_gridgen.gridgen_values(*args)
+        ref = cuda_gridgen.gridgen_values_plain(*args)
+        torch.cuda.synchronize()
+        assert got.shape == ref.shape == counts
+        assert bool(torch.isfinite(got).all())
+        assert float((got - ref).abs().max() / ref.abs().max()) < 1e-5
+
+
+@pytest.mark.parametrize("counts", chip_smoke.RAGGED_COUNTS)
+def test_cap_on_the_last_point_of_ragged_grids(cuda, counts):
+    last = [c - 1 for c in counts]
+    point = (torch.tensor(chip_smoke.RAGGED_ORIGIN)
+             + torch.tensor(last) * torch.tensor(chip_smoke.RAGGED_SPACING))
+    on_atom = torch.cat([point, torch.ones(1)])[None].to(cuda)
+    got = cuda_gridgen.gridgen_values(
+        on_atom, counts, chip_smoke.RAGGED_SPACING, chip_smoke.RAGGED_ORIGIN,
+        "ljr", chip_smoke.RAGGED_CAP)
+    assert float(got[tuple(last)]) == chip_smoke.RAGGED_CAP
+
+
 def _receptor(seed, n):
     rng = np.random.default_rng(seed)
     return (rng.uniform(-0.3, 1.2, (n, 3)), rng.uniform(-1, 1, n),
@@ -81,6 +113,27 @@ def test_derivs_kernel_matches_plain_twin(cuda, grid_type):
     assert got.shape == (19, 21, 23, 27) and got.dtype == torch.float32
     assert _slot_err(got, ref) < 5e-5
     assert _slot_err(got, ref64) < 2e-4
+
+
+@pytest.mark.parametrize("n_atoms", chip_smoke.RAGGED_ATOMS)
+@pytest.mark.parametrize("counts", chip_smoke.RAGGED_COUNTS)
+def test_derivs_kernel_on_ragged_shapes(cuda, counts, n_atoms):
+    """The same ragged shapes for the derivative kernel, at its two gates,
+    every grid type."""
+    geom = (counts, chip_smoke.RAGGED_SPACING, chip_smoke.RAGGED_ORIGIN)
+    for grid_type in chip_smoke.GRID_TYPES:
+        atoms = chip_smoke.ragged_case(grid_type, counts, n_atoms,
+                                       device=cuda)
+        got = cuda_gridgen_derivs.gridgen_derivs(atoms, *geom, grid_type)
+        ref = cuda_gridgen_derivs.gridgen_derivs_plain(atoms, *geom,
+                                                       grid_type)
+        ref64 = cuda_gridgen_derivs.gridgen_derivs_plain(atoms.double(),
+                                                         *geom, grid_type)
+        torch.cuda.synchronize()
+        assert got.shape == counts + (27,)
+        assert bool(torch.isfinite(got).all())
+        assert _slot_err(got, ref) < 5e-5
+        assert _slot_err(got, ref64) < 2e-4
 
 
 @pytest.mark.parametrize("lj_convention", ["rmin", "diameter"])

@@ -155,70 +155,34 @@ def test_derivs_wrapper_takes_plain_twin_on_cpu():
                                float(2.0 / r[0] - 1.0 / r[1]), rtol=1e-12)
 
 
-def _folded_pair_terms(dx, dy, dz, K, grid_type):
-    """The 27 derivative terms of K / r^m with the work shared: every
-    cascade combination of order n is one constant times K / r^(m+n) (the
-    power law's coefficients are constants of the grid type), 1/r^m comes
-    from squarings, and each product of direction cosines is formed once.
-    Same function as ``pair_derivative_terms``, fewer operations."""
-    m, c = radial.FIELD_POWERS[grid_type]
-    t3 = c[3] - 3 * c[2] + 3 * c[1]
-    t4 = c[4] - 6 * c[3] + 15 * c[2] - 15 * c[1]
-    t5 = c[5] - 10 * c[4] + 45 * c[3] - 105 * c[2] + 105 * c[1]
-    t6 = (c[6] - 15 * c[5] + 105 * c[4] - 420 * c[3] + 945 * c[2]
-          - 945 * c[1])
-    t2 = c[2] - c[1]
+def _unfolded_pair_terms(dx, dy, dz, K, grid_type):
+    """The oracle of the folded twin: the seven radial derivatives
+    coef[n] K / r^(m+n), powers by repeated multiplication, fed to the
+    general cascade ``radial.cartesian_terms`` as it is written."""
+    m, coefs = radial.FIELD_POWERS[grid_type]
     r2 = (dx * dx + dy * dy + dz * dz).clamp_min(
         cuda_gridgen_derivs.R2_MIN_DERIVS)
     inv_r = torch.rsqrt(r2)
     inv_rm = inv_r
-    if m > 1:
-        i2 = inv_r * inv_r
-        i3 = i2 * inv_r
-        inv_rm = i3 * i3
-    if m == 12:
-        inv_rm = inv_rm * inv_rm
-    P0 = K * inv_rm
-    P1 = P0 * inv_r
-    P2 = P1 * inv_r
-    P3 = P2 * inv_r
-    P4 = P3 * inv_r
-    P5 = P4 * inv_r
-    P6 = P5 * inv_r
-    dU, dUr, A2 = c[1] * P1, c[1] * P2, t2 * P2
-    A3, B3 = t3 * P3, t2 * P3
-    A4, B4, C4 = t4 * P4, t3 * P4, t2 * P4
-    A5, B5, C5 = t5 * P5, t4 * P5, t3 * P5
-    A6, B6, C6, D6 = t6 * P6, t5 * P6, t4 * P6, t3 * P6
-    nx, ny, nz = dx * inv_r, dy * inv_r, dz * inv_r
-    nx2, ny2, nz2 = nx * nx, ny * ny, nz * nz
-    xy, xz, yz = nx * ny, nx * nz, ny * nz
-    Gx, Gy, Gz = A3 * nx2 + B3, A3 * ny2 + B3, A3 * nz2 + B3
-    qxy, qxz, qyz = nx2 * ny2, nx2 * nz2, ny2 * nz2
-    sxy, sxz, syz = nx2 + ny2, nx2 + nz2, ny2 + nz2
-    Hx, Hy, Hz = A4 * nx2 + B4, A4 * ny2 + B4, A4 * nz2 + B4
-    return [
-        P0, dU * nx, dU * ny, dU * nz,
-        A2 * nx2 + dUr, A2 * xy, A2 * xz, A2 * ny2 + dUr, A2 * yz,
-        A2 * nz2 + dUr,
-        Gx * ny, Gx * nz, Gy * nx, A3 * (xy * nz), Gy * nz, Gz * nx,
-        Gz * ny,
-        A4 * qxy + (B4 * sxy + C4), A4 * qxz + (B4 * sxz + C4),
-        A4 * qyz + (B4 * syz + C4),
-        Hx * yz, Hy * xz, Hz * xy,
-        (A5 * qxy + (B5 * sxy + C5)) * nz,
-        (A5 * qxz + (B5 * sxz + C5)) * ny,
-        (A5 * qyz + (B5 * syz + C5)) * nx,
-        A6 * (qxy * nz2) + (B6 * (qxy + qxz + qyz)
-                            + (C6 * (sxy + nz2) + D6)),
-    ]
+    for _ in range(m - 1):
+        inv_rm = inv_rm * inv_r
+    base = K * inv_rm
+    i2 = inv_r * inv_r
+    i3 = i2 * inv_r
+    i4 = i2 * i2
+    i5 = i4 * inv_r
+    i6 = i4 * i2
+    rad = (base, coefs[1] * base * inv_r, coefs[2] * base * i2,
+           coefs[3] * base * i3, coefs[4] * base * i4, coefs[5] * base * i5,
+           coefs[6] * base * i6)
+    return radial.cartesian_terms(dx, dy, dz, inv_r, i2, i3, i4, i5, *rad)
 
 
 def test_chip_smoke_operation_counts_match_the_twin():
     """chip_smoke's bound counts the FP32 operations per pair that the
-    derivative kernel's function needs: those of ``_folded_pair_terms``,
-    which is held here against the plain twin's values and traced with a
-    counting stand-in for a tensor. The twin's own, unshared arithmetic is
+    derivative kernel's function needs: those of the package's folded
+    ``pair_derivative_terms``, traced with a counting stand-in for a
+    tensor. The folded twin is held against the unfolded cascade, which is
     traced too and may only cost more."""
     import chip_smoke
 
@@ -251,17 +215,19 @@ def test_chip_smoke_operation_counts_match_the_twin():
     # displacements on both sides of the clamp at r = 0.02 nm
     d = torch.from_numpy(rng.uniform(-1, 1, (3, 400))
                          * rng.choice([0.01, 0.1, 1.0], 400))
+    clamped = (d * d).sum(0) < cuda_gridgen_derivs.R2_MIN_DERIVS
+    assert 50 < int(clamped.sum()) < 350
     K = torch.from_numpy(rng.uniform(-3, 3, 400))
     for grid_type, want in chip_smoke.DERIVS_OPS_PER_PAIR.items():
-        ref = cuda_gridgen_derivs.pair_derivative_terms(*d, K, grid_type)
-        got = _folded_pair_terms(*d, K, grid_type)
+        got = cuda_gridgen_derivs.pair_derivative_terms(*d, K, grid_type)
+        ref = _unfolded_pair_terms(*d, K, grid_type)
         assert len(got) == len(ref) == 27
         for slot, (g, r) in enumerate(zip(got, ref)):
-            # float64; the twin's alternating cascade sums cancel a few
+            # float64; the oracle's alternating cascade sums cancel a few
             # digits
             np.testing.assert_allclose(g.numpy(), r.numpy(), rtol=1e-9,
                                        atol=1e-12 * float(r.abs().max()),
                                        err_msg=f"{grid_type} slot {slot}")
-        assert traced(_folded_pair_terms, grid_type) == want, grid_type
         assert traced(cuda_gridgen_derivs.pair_derivative_terms,
-                      grid_type) >= want, grid_type
+                      grid_type) == want, grid_type
+        assert traced(_unfolded_pair_terms, grid_type) >= want, grid_type
