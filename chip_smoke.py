@@ -1,13 +1,17 @@
 #!/usr/bin/env python
 """End-to-end check of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives the port's two paths (openmmgridforce_tpu_torch) at full width, each
-a 1000-step classic-Langevin segment of 1000 ligand replicas on three fused
-receptor grids: the value path (grids from the hand-written values kernel,
-cubic B-spline packs) and the derivative path (grids with 27 derivatives
-from the hand-written derivative kernel and the chain rules, triquintic
-Chebyshev packs, Hermite-row packs beside them). Both kernels are built
-from the checkout and held against their plain PyTorch twins first: on
+Drives the port's three paths (openmmgridforce_tpu_torch) at full width.
+Two are a 1000-step classic-Langevin segment of 1000 ligand replicas on
+three fused receptor grids: the value path (grids from the hand-written
+values kernel, cubic B-spline packs) and the derivative path (grids with
+27 derivatives from the hand-written derivative kernel and the chain
+rules, triquintic Chebyshev packs, Hermite-row packs beside them). The
+third is the BPMF sampler (bpmf_path): value grids packed slab by slab
+into one fused table, an HBonds-constrained 21-state 300-600 K ladder at
+2 fs, equilibration in drain rounds, then trials of replica-exchange
+sweeps, genetic-MC sweeps and MD segments, at cut depth. Both kernels are
+built from the checkout and held against their plain PyTorch twins first: on
 ragged shapes down to one point and one atom, then at the paths' full
 shapes, where each is timed beside its bound, its launch shape and the
 instruction counts of its atom loop. Every
@@ -84,6 +88,30 @@ RAGGED_SPACING = (0.03, 0.035, 0.025)
 RAGGED_ORIGIN = (0.0, -0.2, 0.3)
 RAGGED_CAP = 800.0
 N_DERIV_SLOTS = 27
+# bpmf_path: the reference BPMF configuration (tools/bpmf_reference_input.json)
+# at full width; depth cut to BPMF_EQUIL_STEPS of its 5,000 equilibration
+# steps and BPMF_TRIALS of its 100 trials
+BPMF_STATES = 21
+BPMF_T_MIN, BPMF_T_HIGH = 300.0, 600.0
+BPMF_DT = 0.002             # ps
+BPMF_H_MASS = 4.0
+BPMF_NSTEP_MD = 200
+BPMF_REPX = 5
+BPMF_GMC = 2
+BPMF_EQUIL_STEPS = 1000
+BPMF_EQUIL_REFERENCE = 5000
+BPMF_DRAIN_ROUNDS = 2
+BPMF_TRIALS = 10
+BPMF_TRIALS_REFERENCE = 100
+# the example's remedies for capped-well fusion (its --friction help text)
+BPMF_FRICTION = 5.0
+# receptor atoms >= 1.3 nm from the ligand on this path: with
+# RECEPTOR_GAP's 0.7 nm the hot rungs carry ligand atoms into capped
+# receptor wells within the run (the "charge fusion" that
+# synthetic_complex describes), exchanges pass the fused conformations
+# down the ladder, and a fused replica's 2 fs integration diverges
+BPMF_RECEPTOR_GAP = 1.3
+BPMF_X_CHUNK = 16
 DERIV_CHECK_PLANES = 3   # x-planes at each of the grid's start, middle, end
 FAR_FIELD = 0.3          # nm from every receptor atom
 
@@ -912,6 +940,29 @@ def phase_deriv_eval_check(torch, lig, system, binding, hermite, states,
           f"{f_err / f_scale}")
 
 
+def _profile(torch, fn, host_ops=True):
+    """torch.profiler over one call of ``fn`` (which must end in a
+    synchronise): (wall us, device busy us, device operations, us by
+    kernel name). ``host_ops`` False records the card's activity only,
+    which keeps a window of hundreds of thousands of launches cheap."""
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    if host_ops:
+        acts.append(torch.profiler.ProfilerActivity.CPU)
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    by_name, n_kernels, busy_us = {}, 0, 0.0
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = ev.time_range.elapsed_us()
+        n_kernels += 1
+        busy_us += us
+        by_name[ev.name] = by_name.get(ev.name, 0.0) + us
+    return wall_us, busy_us, n_kernels, by_name
+
+
 def phase_step_profile(torch, system, binding, states, n_steps=20,
                        phase="step_profile"):
     """Where an eager MD step's time goes: torch.profiler over a short
@@ -922,21 +973,12 @@ def phase_step_profile(torch, system, binding, states, n_steps=20,
     temps = torch.full((states.positions.shape[0],), 300.0, device="cuda")
     run(states, system, [binding], temps)                 # warm-up
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
+
+    def window():
         run(states, system, [binding], temps)
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    by_name, n_kernels, busy_us = {}, 0, 0.0
-    for ev in prof.events():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = ev.time_range.elapsed_us()
-        n_kernels += 1
-        busy_us += us
-        by_name[ev.name] = by_name.get(ev.name, 0.0) + us
+
+    wall_us, busy_us, n_kernels, by_name = _profile(torch, window)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     emit({"phase": phase, "steps": n_steps,
           "profiled_wall_ms_per_step": wall_us / n_steps / 1e3,
@@ -946,6 +988,151 @@ def phase_step_profile(torch, system, binding, states, n_steps=20,
           "device_ops_per_step": n_kernels / n_steps,
           "top_device_ms_per_step": {name[:80]: us / n_steps / 1e3
                                      for name, us in top}})
+
+
+def phase_bpmf_path(torch, seed, lig, lig_crd, rec, rec_crd, counts,
+                    origin, n_states=BPMF_STATES,
+                    equil_steps=BPMF_EQUIL_STEPS, n_trials=BPMF_TRIALS,
+                    nstep_md=BPMF_NSTEP_MD, device="cuda"):
+    """The BPMF sampler path (examples/bpmf_sampler_torch.py's route):
+    value grids through the values kernel, B-spline packs fused slab by
+    slab, an HBonds-constrained system with hydrogen mass 4, a geometric
+    300-600 K ladder at dt 2 fs; equilibration in drain rounds, then
+    trials of exchange sweeps, genetic-MC sweeps and MD segments, the last
+    one profiled. Returns the values kernel's launches on this path."""
+    from openmmgridforce_tpu_torch.grid import InterpolationMethod
+    from openmmgridforce_tpu_torch.mm import GridBinding, system_from_amber
+    from openmmgridforce_tpu_torch.mm.constraints import (apply_rattle,
+                                                          apply_shake)
+    from openmmgridforce_tpu_torch.ops import gridgen
+    from openmmgridforce_tpu_torch.ops.packed import pack_grids_fused
+    from openmmgridforce_tpu_torch.parallel import replica_temperatures
+    from openmmgridforce_tpu_torch.sampling import Sampler, SamplerConfig
+
+    spacing = (SPACING,) * 3
+    values_kernel, derivs_kernel = _reset_launches()
+    apply_shake.stats.reset()
+    apply_rattle.stats.reset()
+    _sync(torch, device)
+    t0 = time.perf_counter()
+    grids = [gridgen.generate_grid(
+        counts, spacing, origin, gt, rec_crd, rec.charges, rec.sigmas,
+        rec.epsilons, grid_cap=GRID_CAP,
+        interp_method=InterpolationMethod.BSPLINE, device=device)
+        for gt in GRID_TYPES]
+    _sync(torch, device)
+    t_gen = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    multi = pack_grids_fused(grids, x_chunk=BPMF_X_CHUNK, device=device)
+    _sync(torch, device)
+    t_pack = time.perf_counter() - t0
+    del grids
+    scaling = torch.as_tensor(np.stack([gridgen.auto_scaling_factors(
+        gt, lig.charges, lig.sigmas, lig.epsilons) for gt in GRID_TYPES]),
+        dtype=torch.float32, device=device)
+    system = system_from_amber(lig, dtype=torch.float32,
+                               hydrogen_mass=BPMF_H_MASS,
+                               constraints="HBonds", device=device)
+    config = SamplerConfig(n_states=n_states, t_high=BPMF_T_HIGH,
+                           t_min=BPMF_T_MIN, dt=BPMF_DT,
+                           friction=BPMF_FRICTION,
+                           md_steps_per_trial=nstep_md,
+                           hydrogen_mass=BPMF_H_MASS, seed=seed)
+    sampler = Sampler(system, [GridBinding(grid=multi, scaling=scaling)],
+                      lig_crd, config,
+                      bonds=[tuple(b) for b in lig.bond_idx], device=device)
+
+    t0 = time.perf_counter()
+    redrawn = []
+    for _ in range(BPMF_DRAIN_ROUNDS):
+        sampler.run_md(equil_steps // BPMF_DRAIN_ROUNDS)
+        redrawn.append(sampler.drain_trapped())
+    _sync(torch, device)
+    t_equil = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    sampler.run(n_trials - 1, n_exchange_per_trial=BPMF_REPX,
+                n_gmc_per_trial=BPMF_GMC)
+    _sync(torch, device)
+    t_trials = time.perf_counter() - t0
+
+    def last_trial():
+        sampler.run(1, n_exchange_per_trial=BPMF_REPX,
+                    n_gmc_per_trial=BPMF_GMC)
+        _sync(torch, device)
+
+    if torch.device(device).type == "cuda":
+        wall_us, busy_us, n_ops, _ = _profile(torch, last_trial,
+                                              host_ops=False)
+        profiled = {"wall_s": wall_us / 1e6,
+                    "device_busy_s": busy_us / 1e6 if n_ops else None,
+                    "device_busy_share": busy_us / wall_us if n_ops
+                    else "not measured",
+                    "device_ops": n_ops}
+    else:
+        last_trial()
+        profiled = "not measured: no CUDA device"
+    launches = {"gridgen_values": values_kernel.launches,
+                "gridgen_derivs": derivs_kernel.launches}
+
+    states = sampler.states
+    x = states.positions
+    cs = system.constraints
+    d = x[:, cs.idx[:, 0]] - x[:, cs.idx[:, 1]]
+    violation = float((d.norm(dim=-1) / cs.length - 1.0).abs().max())
+    rec_x = torch.as_tensor(rec_crd, dtype=x.dtype, device=x.device)
+    contact = float(torch.cdist(x.reshape(-1, 3), rec_x).min())
+    t_inst = replica_temperatures(states, system.masses).double().cpu()
+    ratio = t_inst / torch.as_tensor(sampler.temperatures)
+    finite = bool(torch.isfinite(x).all()
+                  and torch.isfinite(states.velocities).all())
+    steps_timed = (n_trials - 1) * nstep_md * n_states
+    emit({"phase": "bpmf_path", "counts": counts,
+          "grid_points": counts[0] * counts[1] * counts[2],
+          "ligand_atoms": lig.natom, "receptor_atoms": rec.natom,
+          "receptor_gap_nm": BPMF_RECEPTOR_GAP, "states": n_states,
+          "ladder_K": [BPMF_T_MIN, BPMF_T_HIGH],
+          "constraints": cs.num_constraints, "dt_ps": BPMF_DT,
+          "friction": BPMF_FRICTION, "hydrogen_mass": BPMF_H_MASS,
+          "nstep_md": nstep_md, "ntrial_repX": BPMF_REPX,
+          "ntrial_gMC": BPMF_GMC,
+          "cuts": {"equilibration_steps": [equil_steps,
+                                           BPMF_EQUIL_REFERENCE],
+                   "drain_rounds": BPMF_DRAIN_ROUNDS,
+                   "trials": [n_trials, BPMF_TRIALS_REFERENCE]},
+          "launches": launches, "generate_s": t_gen, "pack_s": t_pack,
+          "fused_table_shape": list(multi.coeffs.shape),
+          "x_chunk": BPMF_X_CHUNK, "equilibration_s": t_equil,
+          "redrawn_per_round": redrawn,
+          "equilibration_replica_steps_per_s":
+              equil_steps * n_states / t_equil,
+          "trials_timed": n_trials - 1, "trials_s": t_trials,
+          "replica_steps_per_s": steps_timed / t_trials,
+          "shake_sweeps_per_step": apply_shake.stats.summary(),
+          "rattle_sweeps_per_step": apply_rattle.stats.summary(),
+          "exchange_accepted": [sampler.n_exchange_accepted,
+                                sampler.n_exchange_attempted],
+          "gmc_accepted": [sampler.n_gmc_accepted, sampler.n_gmc_attempted],
+          "T_inst_K": [round(float(t), 1) for t in t_inst],
+          "median_T_over_rung": float(ratio.median()),
+          "max_T_K": float(t_inst.max()),
+          "max_rel_constraint_violation": violation,
+          "min_ligand_receptor_nm": contact,
+          "profiled_trial": profiled, "finite": finite})
+    if torch.device(device).type == "cuda":
+        check(launches["gridgen_values"] >= 3,
+              f"gridgen_values launched {launches['gridgen_values']} times "
+              "on bpmf_path")
+    check(finite, "bpmf_path: non-finite positions or velocities")
+    check(violation < 1e-4, f"bpmf_path: a constrained distance is "
+          f"{violation} from its length")
+    check(0.5 < float(ratio.median()) < 2.0,
+          f"bpmf_path: median T_inst / T_rung {float(ratio.median())}")
+    check(float(t_inst.max()) < 20000.0,
+          f"bpmf_path: a rung reached {float(t_inst.max())} K")
+    check(sampler.n_exchange_accepted >= 1, "bpmf_path: no exchange "
+          f"accepted in {sampler.n_exchange_attempted}")
+    return launches["gridgen_values"]
 
 
 def main(argv=None):
@@ -975,19 +1162,28 @@ def main(argv=None):
         "gridgen_derivs": phase_kernel_check_derivs(torch, rec, rec_crd,
                                                     counts, origin,
                                                     sm_count)}
-    launches = {}
-    system, binding, _, states, launches["gridgen_values"] = \
+    launches = {"gridgen_values": {}, "gridgen_derivs": {}}
+    system, binding, _, states, launches["gridgen_values"]["main_path"] = \
         phase_main_path(torch, args.seed, *complex_)
     phase_eval_check(torch, lig, system, binding, states)
     phase_step_profile(torch, system, binding, states)
     del binding
 
-    system, binding, hermite, states, launches["gridgen_derivs"] = \
+    system, binding, hermite, states, \
+        launches["gridgen_derivs"]["deriv_path"] = \
         phase_deriv_path(torch, args.seed, *complex_)
     phase_deriv_setup_times(torch, rec, rec_crd, counts, origin)
     phase_deriv_eval_check(torch, lig, system, binding, hermite, states)
     phase_step_profile(torch, system, binding, states,
                        phase="deriv_step_profile")
+    del binding, hermite
+
+    lig, lig_crd, rec, rec_crd = synthetic_complex(args.seed,
+                                                   gap=BPMF_RECEPTOR_GAP)
+    check(grid_box(lig_crd) == (counts, origin), "the BPMF complex's "
+          "ligand differs from the other paths'")
+    launches["gridgen_values"]["bpmf_path"] = phase_bpmf_path(
+        torch, args.seed, lig, lig_crd, rec, rec_crd, counts, origin)
 
     replaces = {
         "gridgen_values": "openmmgridforce_tpu/ops/pallas_gridgen.py:39",
@@ -1000,7 +1196,8 @@ def main(argv=None):
         "name": name, "route": "cuda",
         "source": f"openmmgridforce_tpu_torch/csrc/{name}.cu",
         "replaces": replaces[name],
-        "launches": launches[name],
+        "launches": sum(launches[name].values()),
+        "launches_by_path": launches[name],
         "max_abs_err": max(r["max_abs_err"] for r in per_type.values()),
         "max_rel_err": max(r[rel_key[name]] for r in per_type.values()),
         "ms": sum(r["ms"] for r in per_type.values()),

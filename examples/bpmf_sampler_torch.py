@@ -1,0 +1,245 @@
+#!/usr/bin/env python
+"""BPMF production workflow on the PyTorch/CUDA port: the torch twin of
+examples/bpmf_sampler.py.
+
+    python examples/bpmf_sampler_torch.py -i input.json --generate-grids \
+        [--device cuda|cpu] [--n-trials N] [--friction 5] [--drain-rounds 2]
+
+Reads the same input.json schema (run_job/nstate/ntrial_repX/ntrial_gMC/
+nstep_MD/nstep_equil at the top level, T_HIGH/T_SIMMIN/H_mass/delta_t in
+the job section, AMBER file paths under 'dir'), regenerates the charge,
+ljr and lja grids from the receptor over the ligand's bounds +- 1 nm
+(on the card through the hand-written values kernel), packs them as cubic
+B-splines fused slab by slab (``pack_grids_fused``, 16-cell slabs), builds
+an HBonds-constrained system with repartitioned hydrogen masses, and runs
+the temperature-ladder sampler with every rung batched on one device.
+Writes energies.dat and traj.xyz (and a checkpoint every 50 trials) into
+the work directory.
+
+Reading grid files (AlGDock NetCDF, V3) is not ported yet, and neither is
+the replica mesh (--dp/--sp): both raise.
+"""
+
+import argparse
+import json
+import os
+import sys
+import time
+
+import numpy as np
+
+# allow running from a source checkout without installation
+_repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+if os.path.isdir(os.path.join(_repo, "openmmgridforce_tpu_torch")):
+    sys.path.insert(0, _repo)
+
+GRID_TYPES = ("charge", "ljr", "lja")
+# fused three-grid B-spline rows are 192 floats; above this many table
+# bytes the fusion splits into (charge + ljr | lja), the grouping rule of
+# examples/bpmf_sampler.py
+FUSED_TABLE_LIMIT = 6.8e9
+X_CHUNK = 16
+
+
+def generate_grids(cfg, lig_crd, margin, spacing, device):
+    """Charge/ljr/lja B-spline grids from the receptor named in input.json,
+    over the ligand's bounds +- ``margin`` nm at ``spacing`` nm."""
+    from openmmgridforce_tpu_torch.grid import InterpolationMethod
+    from openmmgridforce_tpu_torch.mm import load_inpcrd, load_prmtop
+    from openmmgridforce_tpu_torch.ops import gridgen
+
+    paths = cfg.get("dir", {})
+    for k in ("receptor_prmtop", "receptor_inpcrd"):
+        if k not in paths:
+            raise SystemExit(f"input.json: --generate-grids needs '{k}' "
+                             "under 'dir'")
+    rec = load_prmtop(paths["receptor_prmtop"])
+    rec_crd = load_inpcrd(paths["receptor_inpcrd"])
+    lo = lig_crd.min(0) - margin
+    counts = tuple(int(c) + 1 for c in
+                   np.ceil((lig_crd.max(0) + margin - lo) / spacing))
+    print(f"generating grids {counts} from {rec.natom} receptor atoms",
+          flush=True)
+    return [gridgen.generate_grid(
+        counts, (spacing,) * 3, lo, gt, rec_crd, rec.charges, rec.sigmas,
+        rec.epsilons, interp_method=InterpolationMethod.BSPLINE,
+        device=device) for gt in GRID_TYPES]
+
+
+def fused_bindings(grids, scalings, device):
+    """GridBindings of the grids, fused as one table where it fits, else
+    as (charge + ljr | lja)."""
+    import torch
+
+    from openmmgridforce_tpu_torch.mm import GridBinding
+    from openmmgridforce_tpu_torch.ops.packed import pack_grids_fused
+
+    ncells = int(np.prod([c - 1 for c in grids[0].counts]))
+    groups = ([[0, 1], [2]] if ncells * 256 * 4 > FUSED_TABLE_LIMIT
+              else [[0, 1, 2]])
+    return [GridBinding(
+        grid=pack_grids_fused([grids[i] for i in grp], x_chunk=X_CHUNK,
+                              device=device),
+        scaling=torch.as_tensor(np.stack([scalings[i] for i in grp]),
+                                dtype=torch.float32, device=device))
+        for grp in groups]
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("-i", "--input", required=True)
+    ap.add_argument("--n-trials", type=int, default=100)
+    ap.add_argument("--generate-grids", action="store_true",
+                    help="regenerate grids from the receptor (the only "
+                         "grid route ported so far)")
+    ap.add_argument("--work-dir", default=None)
+    ap.add_argument("--grid-spacing", type=float, default=0.025,
+                    help="spacing (nm) for --generate-grids")
+    ap.add_argument("--dp", type=int, default=0,
+                    help="replica mesh: not ported yet")
+    ap.add_argument("--sp", type=int, default=1,
+                    help="spatial grid sharding: not ported yet")
+    ap.add_argument("--friction", type=float, default=1.0,
+                    help="Langevin friction (ps^-1). The reference example "
+                         "uses 1/ps; on capped grids a fusion event spikes "
+                         "a rung's temperature and friction sets the drain "
+                         "rate: 5/ps keeps the ladder finite where 1/ps "
+                         "lets spikes compound during equilibration")
+    ap.add_argument("--drain-rounds", type=int, default=0,
+                    help="split equilibration into this many chunks and "
+                         "re-draw velocities of fusion-trapped states "
+                         "between chunks (0 = one uninterrupted run)")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the CUDA card)")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    from openmmgridforce_tpu_torch import resolve_device
+    from openmmgridforce_tpu_torch.mm import (load_inpcrd, load_prmtop,
+                                              system_from_amber)
+    from openmmgridforce_tpu_torch.sampling import Sampler, SamplerConfig
+    from openmmgridforce_tpu_torch.units import KCAL_TO_KJ
+    from openmmgridforce_tpu_torch.utils import save_sampler, write_xyz_frame
+
+    device = resolve_device(args.device)
+    if args.dp or args.sp != 1:
+        raise NotImplementedError(
+            "--dp/--sp: the replica mesh and grid sharding are not ported "
+            "yet (ROADMAP Queue A item 15)")
+
+    with open(args.input) as fh:
+        cfg = json.load(fh)
+
+    def require(d, key, where):
+        if key not in d:
+            raise SystemExit(
+                f"input.json: missing key '{key}' in {where} (reference "
+                "schema: run_job/nstate/ntrial_repX/ntrial_gMC/nstep_MD at "
+                "the top level; T_HIGH/T_SIMMIN/H_mass/delta_t inside the "
+                "job section named by run_job; file paths under 'dir')")
+        return d[key]
+
+    run_job = require(cfg, "run_job", "the top level")
+    job = require(cfg, run_job, "the top level (the job section)")
+    dtype = torch.float32
+
+    paths = require(cfg, "dir", "the top level")
+    lig = load_prmtop(require(paths, "ligand_prmtop", "'dir'"))
+    lig_crd = load_inpcrd(require(paths, "ligand_inpcrd", "'dir'"))
+    system = system_from_amber(lig, dtype=dtype,
+                               hydrogen_mass=job.get("H_mass"),
+                               constraints="HBonds", device=device)
+
+    # per-atom scaling factors with the sampler's conventions
+    # (sampler.py:497-520: charge; sqrt(eps)*(2 rVdw)^6; sqrt(eps)*(2 rVdw)^3
+    # where rVdw = Rmin/2 = 2^(1/6) sigma / 2)
+    rvdw = (2.0 ** (1.0 / 6.0)) * lig.sigmas / 2.0
+    scalings = [lig.charges, np.sqrt(lig.epsilons) * (2.0 * rvdw) ** 6,
+                np.sqrt(lig.epsilons) * (2.0 * rvdw) ** 3]
+
+    bindings = []
+    # the reference adds grid forces only for the complex ('CD') job;
+    # 'BC' samples the isolated ligand (sampler.py:484-521)
+    if run_job != "BC":
+        if not args.generate_grids:
+            raise NotImplementedError(
+                "reading grid files (NetCDF, V3) is not ported yet (ROADMAP "
+                "Queue A item 10); pass --generate-grids")
+        t0 = time.perf_counter()
+        grids = generate_grids(cfg, lig_crd, margin=1.0,
+                               spacing=args.grid_spacing, device=device)
+        bindings = fused_bindings(grids, scalings, device)
+        del grids
+        print(f"grids generated and packed in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    nstate = require(cfg, "nstate", "the top level")
+    scfg = SamplerConfig(
+        n_states=nstate,
+        t_high=require(job, "T_HIGH", f"job '{run_job}'"),
+        t_min=require(job, "T_SIMMIN", f"job '{run_job}'"),
+        dt=require(job, "delta_t", f"job '{run_job}'") / 1000.0,  # fs -> ps
+        friction=args.friction,
+        md_steps_per_trial=require(cfg, "nstep_MD", "the top level"),
+        hydrogen_mass=job.get("H_mass"),
+    )
+    sampler = Sampler(system, bindings, lig_crd, scfg,
+                      bonds=[tuple(b) for b in lig.bond_idx], device=device)
+
+    n_repx = require(cfg, "ntrial_repX", "the top level")
+    n_gmc = require(cfg, "ntrial_gMC", "the top level")
+    work_dir = args.work_dir or os.path.join(
+        cfg.get("work_dir", "."), run_job, f"{nstate}_{n_repx}_{n_gmc}")
+    os.makedirs(work_dir, exist_ok=True)
+
+    with open(os.path.join(work_dir, "energies.dat"), "w") as energy_file, \
+            open(os.path.join(work_dir, "traj.xyz"), "w") as xyz_file:
+        def report(trial, s):
+            e = s.potential_energies()
+            energy_file.write("".join(f"{v / KCAL_TO_KJ:12.4f}"
+                                      for v in e) + "\n")
+            energy_file.flush()
+            pos = s.states.positions.cpu().numpy()
+            for istate in (0, len(e) - 1):
+                write_xyz_frame(xyz_file,
+                                f"state {istate} E={e[istate]:.3f}",
+                                pos[istate])
+            if trial % 50 == 49:
+                save_sampler(os.path.join(work_dir, "checkpoint"), s)
+
+        t0 = time.perf_counter()
+        # equilibration before production (sampler.py:551), in
+        # --drain-rounds chunks: between chunks, fusion-trapped rungs
+        # (instantaneous T > 5x their ladder T) get fresh velocities
+        nstep_equil = int(cfg.get("nstep_equil", 0))
+        if nstep_equil > 0:
+            chunks = max(1, args.drain_rounds)
+            per = max(1, nstep_equil // chunks)
+            for i in range(chunks):
+                sampler.run_md(per)
+                if args.drain_rounds > 0:
+                    n_hot = sampler.drain_trapped()
+                    if n_hot:
+                        print(f"equil chunk {i + 1}/{chunks}: re-drew "
+                              f"velocities of {n_hot} trapped states")
+
+        sampler.run(n_trials=args.n_trials, n_exchange_per_trial=n_repx,
+                    n_gmc_per_trial=n_gmc, callback=report)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+
+    steps = args.n_trials * scfg.md_steps_per_trial * nstate
+    print(f"{args.n_trials} trials in {elapsed:.1f}s on {device} "
+          f"({steps / elapsed:,.0f} replica-steps/s)")
+    print(f"exchange acceptance: "
+          f"{sampler.n_exchange_accepted}/{sampler.n_exchange_attempted}")
+    if sampler.n_gmc_attempted:
+        print(f"gMC acceptance: "
+              f"{sampler.n_gmc_accepted}/{sampler.n_gmc_attempted}")
+    return sampler
+
+
+if __name__ == "__main__":
+    main()

@@ -13,6 +13,7 @@ import torch
 
 from .device import resolve_device
 from .grid import Grid, InterpolationMethod
+from .mm.constraints import ConstraintSet
 from .mm.integrators import MDState
 from .mm.system import System
 from .ops.packed import (HermitePackedGrid, MultiHermitePackedGrid,
@@ -24,16 +25,29 @@ SYSTEM_FIELDS = ("masses", "charges", "sigmas", "epsilons", "bond_idx",
                  "torsion_idx", "torsion_k", "torsion_per", "torsion_phase")
 _INDEX_FIELDS = {"bond_idx": 2, "angle_idx": 3, "torsion_idx": 4}
 PAIR_FIELDS = ("qq", "sigma", "epsilon", "mask")
+CONSTRAINT_FIELDS = ("idx", "length", "inv_mass")
 
 
 def _float(x, dtype, device):
     return torch.as_tensor(np.array(x), dtype=dtype, device=device)
 
 
-def system_from_arrays(arrays, pairs=None, *, dtype=torch.float64,
-                       device=None) -> System:
+def constraints_from_arrays(idx, length, inv_mass, *, dtype=torch.float64,
+                            device=None) -> ConstraintSet:
+    """The port's ConstraintSet from the arrays of a JAX ConstraintSet."""
+    device = resolve_device(device)
+    return ConstraintSet(
+        idx=torch.as_tensor(np.asarray(idx, np.int64),
+                            device=device).reshape(-1, 2),
+        length=_float(length, dtype, device),
+        inv_mass=_float(inv_mass, dtype, device))
+
+
+def system_from_arrays(arrays, pairs=None, constraints=None, *,
+                       dtype=torch.float64, device=None) -> System:
     """``arrays``: mapping of every name in SYSTEM_FIELDS to an array;
-    ``pairs``: None or a mapping of PAIR_FIELDS."""
+    ``pairs``: None or a mapping of PAIR_FIELDS; ``constraints``: None or
+    a mapping of CONSTRAINT_FIELDS."""
     device = resolve_device(device)
     fields = {}
     for name in SYSTEM_FIELDS:
@@ -47,7 +61,12 @@ def system_from_arrays(arrays, pairs=None, *, dtype=torch.float64,
     if pairs is not None:
         table = PairTable(**{k: _float(pairs[k], dtype, device)
                              for k in PAIR_FIELDS})
-    return System(pairs=table, **fields)
+    cset = None
+    if constraints is not None:
+        cset = constraints_from_arrays(
+            *(constraints[k] for k in CONSTRAINT_FIELDS), dtype=dtype,
+            device=device)
+    return System(pairs=table, constraints=cset, **fields)
 
 
 def grid_from_arrays(vals, spacing, origin, *, interp_method=0,

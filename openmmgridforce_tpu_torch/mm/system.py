@@ -22,8 +22,13 @@ from ..ops.packed import (HermitePackedGrid, MultiHermitePackedGrid,
                           evaluate_multi, evaluate_packed)
 from ..ops.pairwise import PairTable, build_pair_table, pair_energy_forces
 from .amber import AmberTopology
+from .constraints import ConstraintSet, constraints_from_bonds
 from .forcefield import bonded_energy, bonded_energy_forces
 from .integrators import make_langevin_step, run_segment
+
+# accepted spellings of system_from_amber's ``constraints``
+_CONSTRAINT_ALIASES = {"HBonds": "h_bonds", "AllBonds": "all_bonds",
+                       "h_bonds": "h_bonds", "all_bonds": "all_bonds"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,6 +48,7 @@ class System:
     torsion_per: torch.Tensor
     torsion_phase: torch.Tensor
     pairs: Optional[PairTable] = None
+    constraints: Optional[ConstraintSet] = None
 
 
 def system_from_amber(top: AmberTopology, dtype=torch.float64,
@@ -54,11 +60,12 @@ def system_from_amber(top: AmberTopology, dtype=torch.float64,
     ``hydrogen_mass``: if set, repartition hydrogen masses to this value,
     subtracting the difference from the bonded heavy atom (OpenMM's
     hydrogenMass option).
+    ``constraints``: None, "h_bonds" (alias "HBonds") or "all_bonds"
+    (alias "AllBonds"). Constrained bonds leave the harmonic terms (OpenMM's
+    createSystem semantics) and become the System's ConstraintSet, whose
+    inverse masses are the repartitioned ones.
     """
     device = resolve_device(device)
-    if constraints is not None:
-        raise NotImplementedError(
-            "constraints are not ported yet (ROADMAP: mm/constraints.py)")
     masses = np.array(top.masses, dtype=float)
     if hydrogen_mass is not None:
         is_h = masses < 2.0  # hydrogens (and extra points excluded: mass 0)
@@ -82,6 +89,23 @@ def system_from_amber(top: AmberTopology, dtype=torch.float64,
                              exceptions=exceptions, dtype=dtype,
                              device=device)
 
+    cset = None
+    bond_idx, bond_k, bond_r0 = top.bond_idx, top.bond_k, top.bond_r0
+    if constraints is not None:
+        cset = constraints_from_bonds(top.bond_idx, top.bond_r0,
+                                      top.masses,  # pre-repartition masses
+                                      which=_CONSTRAINT_ALIASES[constraints],
+                                      dtype=dtype, device=device)
+        cset = dataclasses.replace(cset, inv_mass=torch.as_tensor(
+            1.0 / masses, dtype=dtype, device=device))
+        cidx = {tuple(sorted(p)) for p in cset.idx.tolist()}
+        keep = np.array([tuple(sorted(b)) not in cidx
+                         for b in np.asarray(top.bond_idx).tolist()],
+                        dtype=bool)
+        bond_idx = np.asarray(top.bond_idx).reshape(-1, 2)[keep]
+        bond_k = np.asarray(top.bond_k)[keep]
+        bond_r0 = np.asarray(top.bond_r0)[keep]
+
     def arr(x):
         return torch.as_tensor(np.asarray(x, np.float64), dtype=dtype,
                                device=device)
@@ -94,9 +118,9 @@ def system_from_amber(top: AmberTopology, dtype=torch.float64,
         charges=arr(top.charges),
         sigmas=arr(top.sigmas),
         epsilons=arr(top.epsilons),
-        bond_idx=iarr(top.bond_idx).reshape(-1, 2),
-        bond_k=arr(top.bond_k),
-        bond_r0=arr(top.bond_r0),
+        bond_idx=iarr(bond_idx).reshape(-1, 2),
+        bond_k=arr(bond_k),
+        bond_r0=arr(bond_r0),
         angle_idx=iarr(top.angle_idx).reshape(-1, 3),
         angle_k=arr(top.angle_k),
         angle_t0=arr(top.angle_t0),
@@ -105,6 +129,7 @@ def system_from_amber(top: AmberTopology, dtype=torch.float64,
         torsion_per=arr(top.torsion_per),
         torsion_phase=arr(top.torsion_phase),
         pairs=pairs,
+        constraints=cset,
     )
 
 
@@ -167,13 +192,15 @@ def energy_and_forces(system: System, grids: Sequence[GridBinding],
     return energy, forces
 
 
-def make_md_runner(n_steps: int, dt: float, friction: float, device=None):
-    """Build an MD segment runner for replica states on ``device``.
+def make_md_runner(n_steps: int, dt: float, friction: float,
+                   scheme: str = "classic", device=None):
+    """Build a Langevin segment runner for replica states on ``device``.
 
     Returns ``run(states, system, grids, temperatures, noise=None)``:
     ``states`` are [R, N, 3], ``temperatures`` a number or [R] (replica
     ladders), ``noise`` None (drawn from the states' generator) or
-    [n_steps, R, N, 3].
+    [n_steps, R, N, 3]. ``scheme`` is "classic" or "middle"; the system's
+    constraints, if any, apply after every position update.
     """
     device = resolve_device(device)
 
@@ -188,7 +215,9 @@ def make_md_runner(n_steps: int, dt: float, friction: float, device=None):
         def force_fn(pos):
             return energy_and_forces(system, grids, pos)[1]
 
-        step = make_langevin_step(force_fn, system.masses, dt, friction, t)
+        step = make_langevin_step(force_fn, system.masses, dt, friction, t,
+                                  scheme=scheme,
+                                  constraints=system.constraints)
         return run_segment(step, states, n_steps, noise=noise)
 
     return run

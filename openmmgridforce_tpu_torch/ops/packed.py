@@ -19,8 +19,9 @@ Hermite basis.
 Semantics follow ``ops/interpolate.py`` exactly (same clamping, restraint
 and back-transform; RUNTIME stencil transforms are folded into packing).
 For a fused set the out-of-bounds restraint is applied once. The fused
-tables are [ncells, G*K], without the TPU's 128-lane padding. Slab-wise
-packing waits for a later slice (ROADMAP).
+tables are [ncells, G*K], without the TPU's 128-lane padding. Large grids
+pack in x-slabs (``pack_grid(x_chunk=)``, ``pack_grids_fused``), so the
+peak is the table plus one slab.
 
 Positions may carry any leading batch dimensions, [..., N, 3] (replicas
 are [R, N, 3]); per-atom scalings are shared across them.
@@ -34,6 +35,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..grid import Grid, InterpolationMethod
 from . import basis
 from .chain_rules import apply_invpower, invpower_value
@@ -177,27 +179,37 @@ class PackedGrid:
     poly_basis: str = "monomial"
 
 
-def _edge_pad(P, lo: int, hi: int):
-    """Pad every axis by ``lo`` and ``hi`` copies of its edge planes."""
-    for axis in range(3):
+def _edge_pad(P, lo: int, hi: int, axes=(0, 1, 2)):
+    """Pad each of ``axes`` by ``lo`` and ``hi`` copies of its edge planes."""
+    for axis in axes:
         n = P.shape[axis]
         idx = torch.arange(-lo, n + hi, device=P.device).clamp(0, n - 1)
         P = P.index_select(axis, idx)
     return P
 
 
-def _pack_values(vals, method, runtime_inv, inv_power, counts):
-    nx, ny, nz = counts
-    ncx, ncy, ncz = nx - 1, ny - 1, nz - 1
-    C = torch.as_tensor(_value_axis_matrix(method), dtype=vals.dtype,
-                        device=vals.device)
-    P = vals
+def _value_planes(vals, method, c0: int, c1: int):
+    """The value planes that cells [c0, c1) along x read, padded for
+    ``_pack_values_padded``: a B-spline slab brings its stencil's real
+    neighbour planes (offsets -1..+2, clamped at the grid's ends, which is
+    edge padding) and is edge-padded along y and z; a trilinear slab is
+    the points [c0, c1]."""
+    if method == InterpolationMethod.BSPLINE:
+        idx = torch.arange(c0 - 1, c1 + 3, device=vals.device).clamp(
+            0, vals.shape[0] - 1)
+        return _edge_pad(vals.index_select(0, idx), 1, 2, axes=(1, 2))
+    return vals[c0:c1 + 1]
+
+
+def _pack_values_padded(P, method, runtime_inv, inv_power, ncells):
+    """Per-cell coefficients [ncx * ncy * ncz, K] of the cells ``ncells``
+    from value planes that carry their stencil (``_value_planes``)."""
+    ncx, ncy, ncz = ncells
+    C = torch.as_tensor(_value_axis_matrix(method), dtype=P.dtype,
+                        device=P.device)
     if runtime_inv:
         # fold the stencil transform into packing
         P = invpower_value(P, 1.0 / inv_power)
-    if method == InterpolationMethod.BSPLINE:
-        # stencil offsets -1..+2 with index clamping == edge padding
-        P = _edge_pad(P, 1, 2)
 
     def contract(x, axis, ncells_axis):
         S = torch.stack([x.narrow(axis, a, ncells_axis)
@@ -240,14 +252,78 @@ def _pack_derivs(derivs, method, runtime_inv, inv_power, counts, out_basis):
     return coeffs.reshape(ncx * ncy * ncz, H.shape[0] ** 3)
 
 
-def pack_grid(grid: Grid, dtype=None,
+def _write_rows(out, part, row: int, col: int):
+    """Write the block ``part`` into ``out`` at (row, col), in place."""
+    out[row:row + part.shape[0], col:col + part.shape[1]] = part
+
+
+def _pack_cells(grid: Grid, c0: int, c1: int, dtype, poly_basis, device):
+    """Coefficient rows [(c1 - c0) * ncy * ncz, K] in ``dtype`` of the
+    grid's cells [c0, c1) along x, computed on ``device`` from the planes
+    they read. Value methods contract in float64 and cast; Hermite
+    methods contract in ``dtype`` (see ``pack_grid``)."""
+    method = int(grid.interp_method)
+    nx, ny, nz = grid.counts
+    runtime_inv = grid_runtime_inv(grid)
+    if method in _HERMITE_METHODS:
+        if grid.derivs is None:
+            raise ValueError("Hermite methods need precomputed derivatives")
+        return _pack_derivs(grid.derivs[c0:c1 + 1].to(device, dtype), method,
+                            runtime_inv, grid.inv_power,
+                            (c1 - c0 + 1, ny, nz), poly_basis)
+    P = _value_planes(grid.vals, method, c0, c1).to(device, torch.float64)
+    coeffs = _pack_values_padded(P, method, runtime_inv, grid.inv_power,
+                                 (c1 - c0, ny - 1, nz - 1))
+    if poly_basis == "chebyshev":
+        coeffs = _coeffs_to_cheb(coeffs, _DEGREES[method])
+    return coeffs.to(dtype)
+
+
+def _default_basis(method: int, dtype) -> str:
+    """Chebyshev for float32 packs of the Hermite methods, where the
+    monomial form loses about 1 kJ/mol near receptor cores; monomial
+    otherwise."""
+    return ("chebyshev" if method in _HERMITE_METHODS
+            and dtype == torch.float32 else "monomial")
+
+
+# above this many cells a pack is built in x-slabs by default
+SLAB_CELLS = 2_000_000
+SLAB_X_CHUNK = 64
+
+
+def _pack_table(grids, dtype, poly_basis, x_chunk, device):
+    """The coefficient table [ncells, G*K] of co-located grids of one
+    method on ``device``: grid g's coefficients in columns [g*K, (g+1)*K).
+    Packed whole, or in x-slabs of ``x_chunk`` cells written into the
+    preallocated table one by one, so the transient peak is the table plus
+    one slab (default: whole up to SLAB_CELLS cells, SLAB_X_CHUNK-cell
+    slabs above)."""
+    ncx, ncy, ncz = (c - 1 for c in grids[0].counts)
+    if x_chunk is None:
+        x_chunk = ncx if ncx * ncy * ncz <= SLAB_CELLS else SLAB_X_CHUNK
+    if len(grids) == 1 and x_chunk >= ncx:
+        return _pack_cells(grids[0], 0, ncx, dtype, poly_basis, device)
+    K = _DEGREES[int(grids[0].interp_method)] ** 3
+    out = torch.empty((ncx * ncy * ncz, len(grids) * K), dtype=dtype,
+                      device=device)
+    for gi, g in enumerate(grids):
+        for c0 in range(0, ncx, x_chunk):
+            c1 = min(c0 + x_chunk, ncx)
+            _write_rows(out, _pack_cells(g, c0, c1, dtype, poly_basis,
+                                         device), c0 * ncy * ncz, gi * K)
+    return out
+
+
+def pack_grid(grid: Grid, dtype=None, x_chunk: int | None = None,
               poly_basis: str | None = None) -> PackedGrid:
     """Per-cell polynomial coefficients of a Grid, on the grid's device.
 
-    ``poly_basis``: "monomial" or "chebyshev". Default (None): Chebyshev
-    for float32 packs of the Hermite methods (tricubic, triquintic), where
-    the monomial form loses about 1 kJ/mol near receptor cores in float32;
-    monomial otherwise.
+    ``x_chunk``: pack in x-slabs of this many cells (``_pack_table``).
+
+    ``poly_basis``: "monomial" or "chebyshev". Default (None):
+    ``_default_basis``, Chebyshev for float32 packs of the Hermite methods
+    (tricubic, triquintic), monomial otherwise.
 
     Value-method packs contract in float64 and cast the table to ``dtype``
     (default: the grid's dtype). Hermite-method packs contract in
@@ -257,25 +333,13 @@ def pack_grid(grid: Grid, dtype=None,
     """
     dtype = dtype or grid.vals.dtype
     method = int(grid.interp_method)
-    hermite = method in _HERMITE_METHODS
-    if poly_basis is None:
-        poly_basis = ("chebyshev" if hermite and dtype == torch.float32
-                      else "monomial")
+    poly_basis = poly_basis or _default_basis(method, dtype)
     if poly_basis not in ("monomial", "chebyshev"):
         raise ValueError(f"unknown poly_basis {poly_basis!r}")
-    runtime_inv = grid_runtime_inv(grid)
-    if hermite:
-        if grid.derivs is None:
-            raise ValueError("Hermite methods need precomputed derivatives")
-        coeffs = _pack_derivs(grid.derivs.to(dtype), method, runtime_inv,
-                              grid.inv_power, grid.counts, poly_basis)
-    else:
-        coeffs = _pack_values(grid.vals.to(torch.float64), method,
-                              runtime_inv, grid.inv_power, grid.counts)
-        if poly_basis == "chebyshev":
-            coeffs = _coeffs_to_cheb(coeffs, _DEGREES[method])
+    coeffs = _pack_table([grid], dtype, poly_basis, x_chunk,
+                         grid.vals.device)
     return PackedGrid(
-        coeffs=coeffs.to(dtype).contiguous(),
+        coeffs=coeffs.contiguous(),
         spacing=grid.spacing.to(dtype),
         origin=grid.origin.to(dtype),
         counts=grid.counts,
@@ -392,6 +456,41 @@ def combine_packed_grids(packed_grids) -> MultiPackedGrid:
         back_powers=tuple(p.back_power for p in packed_grids),
         oob_k=first.oob_k,
         poly_basis=first.poly_basis,
+    )
+
+
+def pack_grids_fused(grids, dtype=None, x_chunk: int | None = None,
+                     device=None) -> MultiPackedGrid:
+    """Pack co-located grids of one interpolation method straight into
+    one fused table [ncells, G*K] on ``device``, slab by slab.
+
+    ``combine_packed_grids`` needs every per-grid pack resident beside the
+    fused output (twice the table); here each grid's x-slabs (``x_chunk``
+    cells, see ``_pack_table``) are packed from planes copied to
+    ``device`` and written into the preallocated table, so the peak is the
+    table plus one slab. The table equals
+    ``combine_packed_grids([pack_grid(g, dtype) for g in grids])``; Hermite
+    methods use ``pack_grid``'s default basis (Chebyshev in float32).
+    """
+    device = resolve_device(device)
+    first = grids[0]
+    method = int(first.interp_method)
+    if method not in _DEGREES:
+        raise ValueError(f"unsupported interpolation method {method}")
+    _check_fusable(grids, ("counts", "interp_method", "oob_k"))
+    dtype = dtype or first.vals.dtype
+    poly_basis = _default_basis(method, dtype)
+    out = _pack_table(grids, dtype, poly_basis, x_chunk, device)
+    return MultiPackedGrid(
+        coeffs=out,
+        spacing=first.spacing.to(device, dtype),
+        origin=first.origin.to(device, dtype),
+        counts=first.counts,
+        degree=_DEGREES[method],
+        n_grids=len(grids),
+        back_powers=tuple(grid_back_power(g) for g in grids),
+        oob_k=first.oob_k,
+        poly_basis=poly_basis,
     )
 
 

@@ -1,5 +1,7 @@
 """Replica ensembles."""
 
-from .replicas import init_replica_states, replica_temperatures
+from .replicas import (init_replica_states, redraw_hot_velocities,
+                       replica_temperatures)
 
-__all__ = ["init_replica_states", "replica_temperatures"]
+__all__ = ["init_replica_states", "redraw_hot_velocities",
+           "replica_temperatures"]

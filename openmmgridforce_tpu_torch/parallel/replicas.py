@@ -1,4 +1,8 @@
-"""Replica ensembles as a leading [R] dimension of the MD state."""
+"""Replica ensembles as a leading [R] dimension of the MD state.
+
+The JAX package's replica mesh (``replica_mesh``, ``shard_replica_states``,
+``make_ensemble_runner``) is not ported yet (ROADMAP Queue A item 15).
+"""
 
 from __future__ import annotations
 
@@ -38,3 +42,32 @@ def init_replica_states(generator: torch.Generator, positions, masses,
                     dtype=x.dtype, device=device)
     states_x = x.expand(n_replicas, *x.shape).clone()
     return MDState(states_x, sigma_v * z, generator)
+
+
+def redraw_hot_velocities(states: MDState, masses, temperatures, threshold):
+    """Re-thermalize fusion-trapped replicas; leave the rest untouched.
+
+    ``threshold`` is in K: a number, or [R] for per-replica thresholds
+    (temperature ladders scale it with the rung temperature). Replicas
+    whose instantaneous temperature exceeds it get fresh Maxwell-Boltzmann
+    velocities at their target temperature (a number or [R]); every other
+    replica keeps bitwise-identical velocities and positions.
+
+    The JAX package draws each hot replica from that replica's own key;
+    here the states share one ``torch.Generator``, which draws a full
+    [R, N, 3] batch on every call, so which numbers a hot replica gets
+    differs from JAX's while the contract above holds. Returns
+    ``(new_states, n_redrawn)``.
+    """
+    t_inst = replica_temperatures(states, masses)
+    hot = t_inst > torch.as_tensor(threshold, dtype=t_inst.dtype,
+                                   device=t_inst.device)
+    v = states.velocities
+    m = torch.as_tensor(masses, dtype=v.dtype, device=v.device)
+    temps = torch.as_tensor(temperatures, dtype=v.dtype,
+                            device=v.device).expand(t_inst.shape)
+    sigma_v = torch.sqrt(BOLTZ * temps[:, None] / m)[..., None]   # [R,N,1]
+    fresh = sigma_v * torch.randn(v.shape, generator=states.generator,
+                                  dtype=v.dtype, device=v.device)
+    v = torch.where(hot[:, None, None], fresh, v)
+    return MDState(states.positions, v, states.generator), int(hot.sum())

@@ -161,3 +161,59 @@ def test_generate_grid_with_derivatives_launches_the_kernel(cuda,
     with pytest.raises(NotImplementedError, match="float64"):
         cuda_gridgen_derivs.gridgen_derivs(
             torch.zeros(3, 4, dtype=torch.float64, device=cuda), *args[:4])
+
+
+def test_constraints_on_the_card_match_the_host(cuda):
+    """Batched SHAKE and RATTLE in float64 on the card against the host:
+    the same results within rounding (the scatter's atomics add in another
+    order) and the same sweep counts, on two calls with other inputs (the
+    card replays the graphs the first call recorded)."""
+    from openmmgridforce_tpu_torch.mm import constraints, system
+
+    lig, x, _, _ = chip_smoke.synthetic_complex(5, n_ligand=23,
+                                                n_receptor=10)
+    sets = {dev: system.system_from_amber(lig, hydrogen_mass=4.0,
+                                          constraints="HBonds",
+                                          device=dev).constraints
+            for dev in ("cpu", cuda)}
+    for seed in (1, 2):
+        rng = np.random.default_rng(seed)
+        x_ref = x + 0.003 * rng.standard_normal((6,) + x.shape)
+        x_new = x_ref + 0.004 * rng.standard_normal(x_ref.shape)
+        v = rng.standard_normal(x_ref.shape)
+        out = {}
+        for dev, cs in sets.items():
+            xs, ns = constraints.apply_shake(
+                cs, torch.as_tensor(x_ref, device=dev),
+                torch.as_tensor(x_new, device=dev))
+            vs, nr = constraints.apply_rattle(cs, xs,
+                                              torch.as_tensor(v, device=dev))
+            out[str(dev)[:4]] = [t.cpu() for t in (xs, ns, vs, nr)]
+        for a, b in zip(out["cpu"], out["cuda"]):
+            if a.dtype == torch.int64:
+                assert torch.equal(a, b)
+            else:
+                np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=0,
+                                           atol=1e-12)
+
+
+def test_pack_grids_fused_on_the_card(cuda):
+    """Slabs packed on the card from grids on the host equal the whole
+    packs fused on the card."""
+    from openmmgridforce_tpu_torch import convert
+    from openmmgridforce_tpu_torch.ops import packed
+
+    rng = np.random.default_rng(2)
+    grids = [convert.grid_from_arrays(rng.standard_normal((9, 8, 7)) * 50,
+                                      (0.1,) * 3, (0.0,) * 3,
+                                      interp_method=1, dtype=torch.float32,
+                                      device="cpu") for _ in range(3)]
+    got = packed.pack_grids_fused(grids, x_chunk=3, device=cuda)
+    ref = packed.combine_packed_grids(
+        [packed.pack_grid(convert.grid_from_arrays(
+            g.vals.numpy(), (0.1,) * 3, (0.0,) * 3, interp_method=1,
+            dtype=torch.float32, device=cuda)) for g in grids])
+    assert got.coeffs.device.type == "cuda"
+    np.testing.assert_allclose(got.coeffs.cpu().numpy(),
+                               ref.coeffs.cpu().numpy(), rtol=1e-6,
+                               atol=1e-6 * float(ref.coeffs.abs().max()))

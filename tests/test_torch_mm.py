@@ -62,8 +62,6 @@ def write_prmtop(path, top):
             acoef.append(4.0 * eps * sig ** 12)
             bcoef.append(4.0 * eps * sig ** 6)
             nb_index[i, j] = nb_index[j, i] = len(acoef)
-    nb = len(top.bond_idx)
-    na = len(top.angle_idx)
     # one 1-4 torsion per (i, l) pair; repeats of a pair skip the 1-4 (-k)
     seen, dih = set(), []
     for t, (i, j, k, l) in enumerate(top.torsion_idx):
@@ -110,7 +108,6 @@ def write_prmtop(path, top):
     lines += _section("DIHEDRALS_INC_HYDROGEN", "I", [])
     lines += _section("DIHEDRALS_WITHOUT_HYDROGEN", "I", dih)
     lines += _section("EXCLUDED_ATOMS_LIST", "I", excl)
-    assert nb and na
     path.write_text("\n".join(lines) + "\n")
 
 
@@ -122,6 +119,7 @@ def write_inpcrd(path, x_nm):
 
 def test_load_prmtop_inpcrd_match_jax(ligand, tmp_path):
     lig, x = ligand
+    assert len(lig.bond_idx) and len(lig.angle_idx)
     write_prmtop(tmp_path / "lig.prmtop", lig)
     write_inpcrd(tmp_path / "lig.inpcrd", x)
     got = amber.load_prmtop(str(tmp_path / "lig.prmtop"))
@@ -166,8 +164,13 @@ def test_system_from_amber_matches_jax(ligand):
                                    np.asarray(getattr(js.pairs, f)),
                                    rtol=1e-12)
     assert float(ts.masses.sum()) == pytest.approx(lig.masses.sum())
-    with pytest.raises(NotImplementedError, match="constraints"):
-        system.system_from_amber(lig, constraints="h_bonds", device="cpu")
+    # constraints are opt-in; tests/test_torch_constraints.py holds them
+    # against the JAX package
+    assert ts.constraints is None
+    cs = system.system_from_amber(lig, constraints="h_bonds",
+                                  device="cpu").constraints
+    has_h = (lig.masses < 2.0)[lig.bond_idx].any(1)
+    assert cs.num_constraints == int(has_h.sum()) > 0
 
 
 def _perturbed(x, seed, lead=(3,)):

@@ -1,6 +1,7 @@
 """The port's package boundary: no JAX inside, no silent fall back to the
 host, and the kernel wrapper's CPU route."""
 
+import importlib.util
 import os
 import re
 import subprocess
@@ -16,13 +17,15 @@ from openmmgridforce_tpu_torch import convert
 from openmmgridforce_tpu_torch.mm import system
 from openmmgridforce_tpu_torch import cuda_build
 from openmmgridforce_tpu_torch.ops import (cuda_gridgen, cuda_gridgen_derivs,
-                                           gridgen, pairwise, radial)
+                                           gridgen, packed, pairwise, radial)
 from openmmgridforce_tpu_torch.parallel import replicas
+from openmmgridforce_tpu_torch.sampling import Sampler, SamplerConfig
 
 torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "openmmgridforce_tpu_torch"
+EXAMPLE = ROOT / "examples" / "bpmf_sampler_torch.py"
 
 
 def _module_names():
@@ -36,11 +39,16 @@ def _module_names():
 def test_port_imports_no_jax():
     mods = _module_names()
     for new in ("ops.cuda_gridgen", "ops.cuda_gridgen_derivs",
-                "ops.derivatives27", "ops.interpolate"):
+                "ops.derivatives27", "ops.interpolate", "mm.constraints",
+                "sampling", "sampling.bat", "sampling.sampler", "utils",
+                "utils.checkpoint", "utils.observe"):
         assert "openmmgridforce_tpu_torch." + new in mods
-    code = ("import importlib, sys\n"
+    code = ("import importlib, importlib.util, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
+            "spec = importlib.util.spec_from_file_location('example', "
+            f"{str(EXAMPLE)!r})\n"
+            "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'openmmgridforce_tpu' or "
             "m.startswith('openmmgridforce_tpu.')]\n"
@@ -55,7 +63,7 @@ def test_port_imports_no_jax():
 def test_no_jax_in_sources():
     banned = re.compile(
         r"^\s*(from|import)\s+(jax|openmmgridforce_tpu)(\.|\s|$)", re.M)
-    for f in [*PKG.rglob("*.py"), ROOT / "chip_smoke.py"]:
+    for f in [*PKG.rglob("*.py"), ROOT / "chip_smoke.py", EXAMPLE]:
         assert not banned.search(f.read_text()), f
 
 
@@ -88,6 +96,10 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     _no_cuda(monkeypatch)
     lig, x, _, _ = synthetic_complex(3, n_ligand=8, n_receptor=5)
     z = np.zeros((3, 3, 3))
+    grid = convert.grid_from_arrays(z, (0.1,) * 3, (0.0,) * 3, device="cpu",
+                                    interp_method=1)
+    cpu_system = system.system_from_amber(lig, constraints="HBonds",
+                                          device="cpu")
     calls = [
         lambda: port.resolve_device(),
         lambda: gridgen.generate_grid((3, 3, 3), (0.1,) * 3, (0.0,) * 3,
@@ -108,10 +120,24 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         lambda: convert.hermite_packed_from_arrays(
             np.zeros((8, 64)), (0.1,) * 3, (0.0,) * 3, counts=(3, 3, 3),
             method=2),
+        lambda: convert.constraints_from_arrays(np.zeros((1, 2)), [0.1],
+                                                [1.0, 1.0]),
+        lambda: system.make_md_runner(2, 0.001, 1.0, scheme="middle"),
+        lambda: packed.pack_grids_fused([grid]),
+        lambda: Sampler(cpu_system, [], x, SamplerConfig(n_states=2)),
+        lambda: _example().main(["-i", "input.json", "--generate-grids"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+
+
+def _example():
+    spec = importlib.util.spec_from_file_location("bpmf_sampler_torch",
+                                                  EXAMPLE)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def test_wrapper_takes_plain_twin_on_cpu():

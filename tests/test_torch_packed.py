@@ -124,3 +124,78 @@ def test_hermite_methods_raise():
     _, tg = _grids(50, 2, 0)
     with pytest.raises(ValueError, match="precomputed derivatives"):
         packed.pack_grid(tg)
+
+
+NCX = COUNTS[0] - 1
+
+
+def _hermite_grids(seed, method):
+    """A tricubic/triquintic grid with random derivatives, both packages."""
+    rng = np.random.default_rng(seed)
+    derivs = rng.standard_normal(COUNTS + (27,)) * 20.0
+    kw = dict(interp_method=method, oob_k=500.0)
+    jg = JGrid.create(derivs[..., 0], SPACING, ORIGIN, derivs=derivs,
+                      dtype=jnp.float64, **kw)
+    tg = convert.grid_from_arrays(derivs[..., 0], SPACING, ORIGIN,
+                                  derivs=derivs, device="cpu", **kw)
+    return jg, tg
+
+
+@pytest.mark.parametrize("x_chunk", [1, 3, NCX])
+@pytest.mark.parametrize("method,mode", [(0, 0), (1, 0), (1, 1), (3, 0)],
+                         ids=["trilinear", "bspline", "bspline-runtime",
+                              "triquintic"])
+def test_pack_grids_fused_matches_jax(method, mode, x_chunk):
+    """Slab by slab into one table: equal to JAX's fused table with its
+    lane padding dropped, and to the port's combine_packed_grids of whole
+    packs."""
+    if method == 3:
+        pairs = [_hermite_grids(60 + g, method) for g in range(3)]
+    else:
+        pairs = [_grids(60 + g, method, mode if g == 1 else 0,
+                        positive=True) for g in range(3)]
+    ref = jpacked.pack_grids_fused([j for j, _ in pairs], x_chunk=x_chunk)
+    got = packed.pack_grids_fused([t for _, t in pairs], x_chunk=x_chunk,
+                                  device="cpu")
+    whole = packed.combine_packed_grids([packed.pack_grid(t)
+                                         for _, t in pairs])
+    width = got.coeffs.shape[1]
+    assert width == 3 * ref.degree ** 3 == whole.coeffs.shape[1]
+    r = np.asarray(ref.coeffs)[:, :width]
+    np.testing.assert_allclose(got.coeffs.numpy(), r, rtol=1e-12,
+                               atol=1e-12 * np.abs(r).max())
+    np.testing.assert_allclose(got.coeffs.numpy(), whole.coeffs.numpy(),
+                               rtol=1e-12,
+                               atol=1e-12 * np.abs(r).max())
+    for f in ("counts", "degree", "n_grids", "back_powers", "oob_k",
+              "poly_basis"):
+        assert getattr(got, f) == getattr(ref, f) == getattr(whole, f), f
+
+
+@pytest.mark.parametrize("method,mode", [(1, 2), (3, 0)],
+                         ids=["bspline-stored", "triquintic"])
+def test_pack_grid_slabs_match_whole(method, mode):
+    """pack_grid(x_chunk=) equals the whole-grid pack and JAX's slab
+    pack."""
+    if method == 3:
+        jg, tg = _hermite_grids(70, method)
+    else:
+        jg, tg = _grids(70, method, mode, positive=True)
+    whole = packed.pack_grid(tg)
+    for x_chunk in (1, 4):
+        got = packed.pack_grid(tg, x_chunk=x_chunk)
+        ref = jpacked.pack_grid(jg, x_chunk=x_chunk)
+        scale = float(whole.coeffs.abs().max())
+        np.testing.assert_allclose(got.coeffs.numpy(),
+                                   whole.coeffs.numpy(), rtol=1e-12,
+                                   atol=1e-12 * scale)
+        np.testing.assert_allclose(got.coeffs.numpy(),
+                                   np.asarray(ref.coeffs), rtol=1e-12,
+                                   atol=1e-12 * scale)
+
+
+def test_pack_grids_fused_refuses_mixed_grids():
+    a = _grids(80, 1, 0)[1]
+    b = _grids(81, 0, 0)[1]
+    with pytest.raises(ValueError, match="share"):
+        packed.pack_grids_fused([a, b], device="cpu")
