@@ -10,16 +10,22 @@ rules, triquintic Chebyshev packs, Hermite-row packs beside them). The
 third is the BPMF sampler (bpmf_path): value grids packed slab by slab
 into one fused table, an HBonds-constrained 21-state 300-600 K ladder at
 2 fs, equilibration in drain rounds, then trials of replica-exchange
-sweeps, genetic-MC sweeps and MD segments, at cut depth. Both kernels are
-built from the checkout and held against their plain PyTorch twins first: on
-ragged shapes down to one point and one atom, then at the paths' full
-shapes, where each is timed beside its bound, its launch shape and the
-instruction counts of its atom loop. Every
+sweeps, genetic-MC sweeps and MD segments, at cut depth. Then the
+out-of-core path: float64 generation through the kernels' float64
+instantiations, grids generated tile by tile into OMGTILE files (the bench
+box, and the reference's 520 x 695 x 578-point stress box, three 0.84 GB
+files in a temporary directory deleted at the end), streamed evaluation
+over the native tile cache against the whole grids on the card, and a
+100-replica Langevin run of StreamedBatchMD on the stress files. Both
+kernels are built from the checkout and held against their plain PyTorch
+twins first: on ragged shapes down to one point and one atom, then at the
+paths' full shapes, where each is timed beside its bound, its launch shape
+and the instruction counts of its atom loop. Every
 phase prints one JSON line; the last line is {"ok": true, "device": {...}}.
 Any failed gate raises and the script exits non-zero. Without a CUDA device
 it exits non-zero and prints no result.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--stream-steps N]
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -29,9 +35,12 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -49,6 +58,9 @@ GRID_TYPES = ("charge", "ljr", "lja")
 RECEPTOR_GAP = 0.7          # nm, least receptor-ligand atom distance
 RECEPTOR_CHARGE_SD = 0.1    # e
 H100_FP32_FLOPS = 67e12       # dense FP32 peak, H100 SXM at 700 W
+# FP64 outside the tensor cores, H100 SXM at 700 W (NVIDIA's data sheet):
+# half the FP32 rate, and no special-function pipe for float64
+H100_FP64_FLOPS = 34e12
 H100_BYTES_PER_S = 3.35e12
 # rsqrt runs on the special-function (MUFU) pipe: 16 results per SM per
 # clock against 256 FP32 operations (128 FMA lanes), so 1/16 of the peak
@@ -114,6 +126,34 @@ BPMF_RECEPTOR_GAP = 1.3
 BPMF_X_CHUNK = 16
 DERIV_CHECK_PLANES = 3   # x-planes at each of the grid's start, middle, end
 FAR_FIELD = 0.3          # nm from every receptor atom
+F64_GATE = 1e-10         # float64 kernels against their float64 twins
+# the out-of-core path: the reference's tiled stress box
+# (test_bspline_tiled_highres.py:46-57, bench_canonical.py:50-52), centred
+# on the ligand
+STRESS_COUNTS = (520, 695, 578)
+STRESS_SPACING = 0.005   # nm
+TILE_SIZE = 32
+NATIVE_BUDGET = 256 << 20     # bytes of the native tile cache
+N_SCREEN_POSES = 4096
+SCREEN_MARGIN = 32            # cells around a docking pose's region
+N_TRIQUINTIC_POSES = 256
+# streamed_path: bench_canonical.py's stress-md protocol (:752-896)
+STREAM_REPLICAS = 100
+STREAM_DT = 0.00025           # ps
+STREAM_FRICTION = 5.0
+STREAM_REFRESH = 50
+STREAM_MARGIN = 16            # cells of drift headroom a side
+STREAM_WARM = 100
+STREAM_DRAIN_ROUNDS = 2
+STREAM_DRAIN_STEPS = 500
+STREAM_DRAIN_K = 1000.0
+# timed steps, cut from the protocol's 1,000 (--stream-steps restores
+# them): as the 100 clouds spread past their 16-cell margins the region
+# policy splits them into more groups, each its own eager segment, and
+# the later steps cost the most (PERF.md)
+STREAM_STEPS = 400
+STREAM_STEPS_REFERENCE = 1000
+STREAM_PROFILED_STEPS = 5
 
 # element -> (mass amu, sigma nm, epsilon kJ/mol, valence)
 _ELEMENTS = {"C": (12.011, 0.34, 0.36, 4), "N": (14.007, 0.325, 0.71, 3),
@@ -384,17 +424,24 @@ def _sm_clock_under_load(torch, fn, launches=20):
                 "note": "nvidia-smi gave no clocks"}
 
 
-def _launch_facts(name, module, counts, grid_type, sm_count):
+def _entry_key(grid_type, f64=False):
+    """The part of a kernel's mangled name that names its instantiation:
+    the grid type and the scalar type."""
+    return f"kernelILi{GRID_TYPES.index(grid_type)}E{'d' if f64 else 'f'}E"
+
+
+def _launch_facts(name, module, counts, grid_type, sm_count, f64=False):
     """What a kernel_check line says about the launch beside its time:
     registers per thread (ptxas), blocks, resident blocks per SM (the CUDA
     runtime's occupancy query), and the waves the grid makes of them."""
+    import torch
     from openmmgridforce_tpu_torch import cuda_build
 
-    code = GRID_TYPES.index(grid_type)
     registers = [r for entry, r in cuda_build.kernel_registers(name).items()
-                 if f"kernelILi{code}E" in entry]
+                 if _entry_key(grid_type, f64) in entry]
     check(len(registers) == 1, f"{name}: no register count for {grid_type}")
-    shape = module.launch_shape(counts, grid_type)
+    shape = module.launch_shape(
+        counts, grid_type, dtype=torch.float64 if f64 else torch.float32)
     return {"registers": registers[0], "blocks": shape["blocks"],
             "threads": shape["threads"],
             "blocks_per_sm": shape["blocks_per_sm"],
@@ -482,8 +529,8 @@ def phase_sass():
         loops = inner_loop_counts(text)
         per_type = {}
         for entry, counts in loops.items():
-            for code, gt in enumerate(GRID_TYPES):
-                if f"kernelILi{code}E" in entry:
+            for gt in GRID_TYPES:
+                if _entry_key(gt) in entry:
                     per_type[gt] = counts
         emit({"phase": "sass", "kernel": name,
               "inner_loop_per_grid_type": per_type or
@@ -1135,9 +1182,554 @@ def phase_bpmf_path(torch, seed, lig, lig_crd, rec, rec_crd, counts,
     return launches["gridgen_values"]
 
 
+# ----------------------------------------------------------------------
+# The out-of-core path and float64 generation
+# ----------------------------------------------------------------------
+
+def _build_spills(name, f64):
+    """Spill bytes ptxas reported for the kernel's instantiations of one
+    scalar type."""
+    from openmmgridforce_tpu_torch import cuda_build
+
+    spilled, entry = 0, None
+    for line in cuda_build.build_log(name).splitlines():
+        found = re.search(r"Compiling entry function '([^']+)'", line)
+        if found:
+            entry = found.group(1)
+        if entry and f"E{'d' if f64 else 'f'}EEv" in entry:
+            spilled += sum(int(b) for b in re.findall(r"(\d+) bytes spill",
+                                                      line))
+    return spilled
+
+
+def phase_float64_kernels(torch, rec, rec_crd, counts, origin, sm_count):
+    """Both kernels' float64 instantiations against their float64 twins:
+    on the ragged shapes, and on the bench box (K1 over the whole grid, K2
+    on slabs of x-planes at the grid's start, middle and end, the full
+    float64 twin of K2 taking minutes); the cap exactly on an atom. Times
+    each over the whole grid beside its FP64 bound. Returns the kernels
+    line's facts per kernel."""
+    from openmmgridforce_tpu_torch.ops import cuda_gridgen, cuda_gridgen_derivs
+    from openmmgridforce_tpu_torch.ops.cuda_gridgen import (
+        gridgen_values, gridgen_values_plain)
+    from openmmgridforce_tpu_torch.ops.cuda_gridgen_derivs import (
+        gridgen_derivs, gridgen_derivs_plain)
+    from openmmgridforce_tpu_torch.ops.gridgen import receptor_atoms
+
+    f64 = torch.float64
+    worst = {"gridgen_values": 0.0, "gridgen_derivs": 0.0}
+    misses = []
+    for rc in RAGGED_COUNTS:
+        geom = (rc, RAGGED_SPACING, RAGGED_ORIGIN)
+        for n_atoms in RAGGED_ATOMS:
+            for gt in GRID_TYPES:
+                atoms = ragged_case(gt, rc, n_atoms, device="cuda",
+                                    dtype=f64)
+                got = gridgen_values(atoms, *geom, gt, RAGGED_CAP)
+                ref = gridgen_values_plain(atoms, *geom, gt, RAGGED_CAP)
+                err = float((got - ref).abs().max() / ref.abs().max())
+                worst["gridgen_values"] = max(worst["gridgen_values"], err)
+                if not (got.dtype == f64 and err < F64_GATE):
+                    misses.append(f"values {gt} {rc} x {n_atoms}: {err}")
+                got = gridgen_derivs(atoms, *geom, gt).reshape(-1, 27)
+                ref = gridgen_derivs_plain(atoms, *geom, gt)
+                err = float(_slot_err(got, ref).max())
+                worst["gridgen_derivs"] = max(worst["gridgen_derivs"], err)
+                if not (got.dtype == f64 and err < F64_GATE):
+                    misses.append(f"derivs {gt} {rc} x {n_atoms}: {err}")
+        last = [c - 1 for c in rc]
+        point = (torch.tensor(RAGGED_ORIGIN, dtype=f64)
+                 + torch.tensor(last, dtype=f64)
+                 * torch.tensor(RAGGED_SPACING, dtype=f64))
+        on_atom = torch.cat([point, torch.ones(1, dtype=f64)])[None]
+        val = float(gridgen_values(on_atom.to("cuda"), *geom, "ljr",
+                                   RAGGED_CAP)[tuple(last)])
+        if val != RAGGED_CAP:
+            misses.append(f"cap on the last point of {rc}: {val}")
+
+    spacing = (SPACING,) * 3
+    nx, nyz = counts[0], counts[1] * counts[2]
+    n_points = nx * nyz
+    planes = min(DERIV_CHECK_PLANES, nx)
+    starts = sorted({0, (nx - planes) // 2, nx - planes})
+    slab_counts = (planes,) + tuple(counts[1:])
+    slab_points = len(starts) * planes * nyz
+    per_type = {"gridgen_values": {}, "gridgen_derivs": {}}
+    for gt in GRID_TYPES:
+        atoms = receptor_atoms(gt, rec_crd, rec.charges, rec.sigmas,
+                               rec.epsilons, dtype=f64, device="cuda")
+        pairs = n_points * atoms.shape[0]
+        columns = counts[0] * counts[1] * atoms.shape[0]
+        # K1 over the whole grid against the twin over the whole grid
+        args = (atoms, counts, spacing, origin, gt, GRID_CAP)
+        got = gridgen_values(*args)
+        ref = gridgen_values_plain(*args)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        ms = _cuda_ms(torch, lambda: gridgen_values(*args), 3)
+        plain_ms = _cuda_ms(torch, lambda: gridgen_values_plain(*args), 1)
+        bound = max((pairs * GRIDGEN_OPS_PER_PAIR[gt] + columns
+                     * GRIDGEN_OPS_PER_COLUMN_ATOM) / H100_FP64_FLOPS,
+                    (atoms.numel() + n_points) * 8 / H100_BYTES_PER_S)
+        per_type["gridgen_values"][gt] = {
+            "max_abs_err": err, "rel_err": err / float(ref.abs().max()),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": 1e3 * bound,
+            "bound_pipe": "fp64", "gpairs_per_s": pairs / ms / 1e6,
+            "spill_bytes": _build_spills("gridgen_values", True),
+            **_launch_facts("gridgen_values", cuda_gridgen, counts, gt,
+                            sm_count, f64=True)}
+        del got, ref
+        # K2: the whole grid timed; slabs against the twin, kernel and
+        # twin timed on the same slabs
+        dargs = (atoms, counts, spacing, origin, gt)
+        full_ms = _cuda_ms(torch, lambda: gridgen_derivs(*dargs), 1)
+
+        def kernel_slabs():
+            return [gridgen_derivs(atoms, slab_counts, spacing, origin, gt,
+                                   index_offset=(x0, 0, 0))
+                    for x0 in starts]
+
+        def plain_slabs():
+            return [gridgen_derivs_plain(atoms, counts, spacing, origin, gt,
+                                         start=x0 * nyz,
+                                         stop=(x0 + planes) * nyz)
+                    for x0 in starts]
+
+        got = torch.cat([g.reshape(-1, 27) for g in kernel_slabs()])
+        ref = torch.cat(plain_slabs())
+        torch.cuda.synchronize()
+        err = _slot_err(got, ref)
+        slab_ms = _cuda_ms(torch, kernel_slabs, 3)
+        plain_ms = _cuda_ms(torch, plain_slabs, 1)
+        slab_pairs = slab_points * atoms.shape[0]
+        per_type["gridgen_derivs"][gt] = {
+            "max_abs_err": float((got - ref).abs().max()),
+            "rel_err": float(err.max()), "rel_err_slot": int(err.argmax()),
+            "full_grid_ms": full_ms,
+            "full_grid_bound_ms": 1e3 * pairs * DERIVS_OPS_PER_PAIR[gt]
+            / H100_FP64_FLOPS,
+            "slab_points": slab_points, "ms": slab_ms, "plain_ms": plain_ms,
+            "bound_ms": 1e3 * slab_pairs * DERIVS_OPS_PER_PAIR[gt]
+            / H100_FP64_FLOPS, "bound_pipe": "fp64",
+            "tflops": pairs * DERIVS_OPS_PER_PAIR[gt] / full_ms / 1e9,
+            "spill_bytes": _build_spills("gridgen_derivs", True),
+            **_launch_facts("gridgen_derivs", cuda_gridgen_derivs, counts,
+                            gt, sm_count, f64=True)}
+        del got, ref
+    on_atom = torch.tensor([[0.1, 0.1, 0.1, 1.0]], dtype=f64, device="cuda")
+    cap_val = float(gridgen_values(on_atom, (3, 3, 3), (0.1,) * 3,
+                                   (0.0,) * 3, "ljr", 500.0)[1, 1, 1])
+    emit({"phase": "float64_kernels", "ragged_cases_per_kernel":
+          len(RAGGED_COUNTS) * len(RAGGED_ATOMS) * len(GRID_TYPES),
+          "ragged_worst_rel_err": worst, "misses": misses, "counts": counts,
+          "atoms": int(rec_crd.shape[0]), "cap_on_atom": cap_val,
+          "per_grid_type": per_type})
+    check(not misses, f"float64 kernels: {misses}")
+    check(cap_val == 500.0, f"float64 cap on atom gave {cap_val}")
+    for name, rows in per_type.items():
+        for gt, r in rows.items():
+            check(r["rel_err"] < F64_GATE,
+                  f"{name} float64 {gt}: rel err {r['rel_err']}")
+    return per_type
+
+
+def phase_float64_generation(torch, rec, rec_crd, counts, origin):
+    """float64 grids of the bench box through generate_grid, values and
+    27 derivatives, every grid type: the float64 instantiations on the
+    path. Returns the launches per kernel."""
+    from openmmgridforce_tpu_torch.ops import gridgen
+
+    spacing = (SPACING,) * 3
+    values_kernel, derivs_kernel = _reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = {}
+    for derivatives in (False, True):
+        for gt in GRID_TYPES:
+            g = gridgen.generate_grid(
+                counts, spacing, origin, gt, rec_crd, rec.charges,
+                rec.sigmas, rec.epsilons, grid_cap=GRID_CAP,
+                compute_derivatives=derivatives, dtype=torch.float64,
+                device="cuda")
+            field = g.derivs if derivatives else g.vals
+            out[(gt, derivatives)] = (g.vals.dtype == torch.float64
+                                      and bool(torch.isfinite(field).all()))
+            del g, field
+    torch.cuda.synchronize()
+    launches = {"gridgen_values": values_kernel.launches,
+                "gridgen_derivs": derivs_kernel.launches}
+    emit({"phase": "float64_generation", "counts": counts,
+          "seconds": time.perf_counter() - t0, "launches": launches,
+          "finite_float64": all(out.values())})
+    check(all(out.values()), "float64 generation: non-finite or not float64")
+    check(launches == {"gridgen_values": 3, "gridgen_derivs": 3},
+          f"float64 generation launched {launches}")
+    return launches
+
+
+def stress_box(lig_crd):
+    """The stress box centred on the ligand: (counts, origin)."""
+    center = 0.5 * (lig_crd.min(0) + lig_crd.max(0))
+    half = 0.5 * STRESS_SPACING * (np.array(STRESS_COUNTS) - 1)
+    return STRESS_COUNTS, tuple(float(v) for v in center - half)
+
+
+def phase_tiled_generation(torch, rec, rec_crd, lig_crd, counts, origin,
+                           workdir):
+    """OMGTILE files through generate_grid_to_tiled_file: the bench box's
+    value and 27-derivative files, read back and held bit for bit against
+    generate_grid of the same box; then the three stress-box value grids.
+    Returns (launches of the tiled route per kernel, {grid type: stress
+    file}, {grid type: bench derivative file})."""
+    from openmmgridforce_tpu_torch.io import TiledGridReader
+    from openmmgridforce_tpu_torch.ops import gridgen
+
+    spacing = (SPACING,) * 3
+    rec_args = (rec_crd, rec.charges, rec.sigmas, rec.epsilons)
+    kernels = _reset_launches()
+    launches = {"gridgen_values": 0, "gridgen_derivs": 0}
+
+    def tiled(path, *args, **kw):
+        """The tiled route, its launches added to ``launches``."""
+        before = [k.launches for k in kernels]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gridgen.generate_grid_to_tiled_file(path, *args, **kw)
+        torch.cuda.synchronize()
+        for name, k, b in zip(launches, kernels, before):
+            launches[name] += k.launches - b
+        return time.perf_counter() - t0
+
+    bench, deriv_files = {}, {}
+    for derivatives in (False, True):
+        for gt in GRID_TYPES:
+            path = os.path.join(workdir, f"bench_{gt}_{int(derivatives)}"
+                                ".tiled")
+            seconds = tiled(path, counts, spacing, origin, gt, *rec_args,
+                            tile_size=TILE_SIZE,
+                            compute_derivatives=derivatives,
+                            grid_cap=GRID_CAP, device="cuda")
+            with TiledGridReader(path) as r:
+                vals, derivs = r.read_full()
+            mem = gridgen.generate_grid(
+                counts, spacing, origin, gt, *rec_args, grid_cap=GRID_CAP,
+                compute_derivatives=derivatives, device="cuda")
+            same = np.array_equal(vals, mem.vals.cpu().numpy())
+            if derivatives:
+                same &= np.array_equal(derivs, np.moveaxis(
+                    mem.derivs.cpu().numpy(), -1, 0))
+                deriv_files[gt] = path
+            else:
+                os.remove(path)
+            bench[f"{gt}{'_derivs' if derivatives else ''}"] = {
+                "seconds": seconds, "bitwise_equal": bool(same)}
+            del mem, vals, derivs
+
+    s_counts, s_origin = stress_box(lig_crd)
+    s_spacing = (STRESS_SPACING,) * 3
+    points = int(np.prod(s_counts))
+    stress, files = {}, {}
+    for gt in GRID_TYPES:
+        path = os.path.join(workdir, f"stress_{gt}.tiled")
+        before = launches["gridgen_values"]
+        seconds = tiled(path, s_counts, s_spacing, s_origin, gt, *rec_args,
+                        tile_size=TILE_SIZE, grid_cap=GRID_CAP,
+                        device="cuda")
+        files[gt] = path
+        stress[gt] = {"seconds": seconds,
+                      "k1_launches": launches["gridgen_values"] - before,
+                      "gb_written": os.path.getsize(path) / 1e9,
+                      "pair_evals_per_s": points * rec_crd.shape[0]
+                      / seconds}
+    emit({"phase": "tiled_generation", "tile_size": TILE_SIZE,
+          "bench_counts": counts, "bench": bench,
+          "stress_counts": s_counts, "stress_spacing_nm": STRESS_SPACING,
+          "stress_points": points, "stress": stress, "launches": launches})
+    for name, r in bench.items():
+        check(r["bitwise_equal"], f"tiled {name} differs from generate_grid")
+    for gt, r in stress.items():
+        check(r["k1_launches"] == -(-s_counts[0] // TILE_SIZE),
+              f"stress {gt}: {r['k1_launches']} K1 launches")
+    return launches, files, deriv_files
+
+
+def _ligand_region(lig_crd, spacing, halo, margin):
+    """Region shape holding the ligand's cloud plus halo and ``margin``
+    cells a side (bench_canonical.py's auto-size)."""
+    span = lig_crd.max(0) - lig_crd.min(0)
+    need = np.ceil(span / spacing).astype(int) + 1 + halo
+    return tuple(int(n + 2 * margin) for n in need)
+
+
+def _rotations(rng, n):
+    q = rng.standard_normal((n, 4))
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    w, x, y, z = q.T
+    return np.stack([
+        np.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z),
+                  2 * (x * z + w * y)], -1),
+        np.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z),
+                  2 * (y * z - w * x)], -1),
+        np.stack([2 * (x * z - w * y), 2 * (y * z + w * x),
+                  1 - 2 * (x * x + y * y)], -1)], 1)
+
+
+def _compare(torch, got, ref):
+    e_err = float((got.energy.double() - ref.energy.double()).abs().max())
+    f_err = float((got.forces.double() - ref.forces.double()).abs().max())
+    e_scale = float(ref.energy.abs().max())
+    f_scale = float(ref.forces.abs().max())
+    return {"max_abs_E": e_scale, "E_rel": e_err / e_scale,
+            "max_abs_F": f_scale, "F_rel": f_err / f_scale}
+
+
+def phase_streamed_eval_check(torch, seed, lig, lig_crd, files, deriv_files,
+                              counts):
+    """StreamedGridEvaluator on the stress files (B-spline, a 256 MB native
+    cache, below one 0.84 GB file): the ligand by evaluate, and 4,096
+    docking poses spread over the box by evaluate_batch, against
+    evaluate_grid on the whole grids held on the card; then the bench
+    box's derivative files with triquintic regions against the in-memory
+    triquintic grid."""
+    from openmmgridforce_tpu_torch.grid import InterpolationMethod
+    from openmmgridforce_tpu_torch.io import TiledGridReader
+    from openmmgridforce_tpu_torch.io.streaming import StreamedGridEvaluator
+    from openmmgridforce_tpu_torch.grid import grid_from_numpy
+    from openmmgridforce_tpu_torch.ops import gridgen
+    from openmmgridforce_tpu_torch.ops.interpolate import evaluate_grid
+
+    rng = np.random.default_rng(seed + 7)
+    scal = {gt: gridgen.auto_scaling_factors(gt, lig.charges, lig.sigmas,
+                                             lig.epsilons)
+            for gt in GRID_TYPES}
+    # docking poses: random rotations of the ligand at sites placed so
+    # that each site's poses share one lattice-aligned region
+    centered = lig_crd - lig_crd.mean(0)
+    radius = float(np.linalg.norm(centered, axis=1).max())
+    need = int(np.ceil(2 * radius / STRESS_SPACING)) + 1 + 3
+    shape = np.minimum(need + 2 * SCREEN_MARGIN, STRESS_COUNTS)
+    s_counts = np.array(STRESS_COUNTS)
+    with TiledGridReader(files["charge"]) as r:
+        s_origin = np.array(r.origin)
+    stride = np.maximum(shape // 2, 1)
+    axes = [np.arange(0, max(c - n, 0) + 1, st)
+            for c, n, st in zip(s_counts, shape, stride)]
+    sites = np.stack(np.meshgrid(*axes, indexing="ij"), -1).reshape(-1, 3)
+    sites = s_origin + (sites + shape // 2) * STRESS_SPACING
+    which = rng.integers(0, len(sites), N_SCREEN_POSES)
+    poses = (np.einsum("pij,nj->pni", _rotations(rng, N_SCREEN_POSES),
+                       centered)
+             + sites[which][:, None, :]
+             + rng.uniform(-0.02, 0.02, (N_SCREEN_POSES, 1, 3)))
+    poses_t = torch.as_tensor(poses, dtype=torch.float32, device="cuda")
+    lig_t = torch.as_tensor(lig_crd, dtype=torch.float32, device="cuda")
+
+    per_type, stats = {}, {}
+    t_all = time.perf_counter()
+    for gt in GRID_TYPES:
+        sc = torch.as_tensor(scal[gt], dtype=torch.float32, device="cuda")
+        region = _ligand_region(lig_crd, STRESS_SPACING, 3, STREAM_MARGIN)
+        ev_lig, ev = (StreamedGridEvaluator(
+            files[gt], InterpolationMethod.BSPLINE, region_shape=r,
+            budget_bytes=NATIVE_BUDGET, device="cuda")
+            for r in (region, tuple(int(v) for v in shape)))
+        t0 = time.perf_counter()
+        one = ev_lig.evaluate(lig_t, sc)
+        torch.cuda.synchronize()
+        t_lig = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        batch = ev.evaluate_batch(poses_t, sc)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        with TiledGridReader(files[gt]) as r:
+            vals, _ = r.read_full()
+            full = grid_from_numpy(vals, r.spacing, r.origin,
+                                   interp_method=InterpolationMethod.BSPLINE,
+                                   device="cuda")
+        del vals
+        ref_one = evaluate_grid(full, lig_t, sc)
+        ref_batch = evaluate_grid(full, poses_t, sc)
+        cache = ev.cache_stats()
+        per_type[gt] = {"ligand": _compare(torch, one, ref_one),
+                        "ligand_s": t_lig, "ligand_region": list(region),
+                        "ligand_native_cache": vars(ev_lig.cache_stats()),
+                        "poses": _compare(torch, batch, ref_batch),
+                        "poses_s": seconds,
+                        "region_hits": ev.region_hits,
+                        "region_misses": ev.region_misses,
+                        "native_cache": vars(cache)}
+        stats[gt] = cache
+        ev.close()
+        ev_lig.close()
+        del full, ref_batch, batch
+        torch.cuda.empty_cache()
+
+    # triquintic regions of the bench box's derivative files
+    tq = {}
+    for gt in GRID_TYPES:
+        sc = torch.as_tensor(scal[gt], dtype=torch.float32, device="cuda")
+        with TiledGridReader(deriv_files[gt]) as r:
+            vals, derivs = r.read_full()
+            full = grid_from_numpy(
+                vals, r.spacing, r.origin, derivs=derivs,
+                interp_method=InterpolationMethod.TRIQUINTIC, device="cuda")
+        region = _ligand_region(lig_crd, SPACING, 1, 24)
+        ev = StreamedGridEvaluator(deriv_files[gt],
+                                   InterpolationMethod.TRIQUINTIC,
+                                   region_shape=region,
+                                   budget_bytes=NATIVE_BUDGET,
+                                   device="cuda")
+        shift = rng.uniform(-0.1, 0.1, (N_TRIQUINTIC_POSES, 1, 3))
+        tposes = torch.as_tensor(lig_crd + shift, dtype=torch.float32,
+                                 device="cuda")
+        tq[gt] = {"ligand": _compare(torch, ev.evaluate(lig_t, sc),
+                                     evaluate_grid(full, lig_t, sc)),
+                  "poses": _compare(torch, ev.evaluate_batch(tposes, sc),
+                                    evaluate_grid(full, tposes, sc)),
+                  "region_hits": ev.region_hits,
+                  "region_misses": ev.region_misses}
+        ev.close()
+        del full
+    emit({"phase": "streamed_eval_check", "stress_counts": STRESS_COUNTS,
+          "native_budget_mb": NATIVE_BUDGET >> 20,
+          "poses": N_SCREEN_POSES, "sites": len(sites),
+          "pose_region_shape": [int(v) for v in shape],
+          "seconds": time.perf_counter() - t_all,
+          "bspline": per_type, "triquintic_bench_box": tq})
+    for table in (per_type, tq):
+        for gt, r in table.items():
+            for what in ("ligand", "poses"):
+                for key in ("E_rel", "F_rel"):
+                    check(r[what][key] < 1e-4,
+                          f"streamed {gt} {what} {key} {r[what][key]}")
+    for gt, cache in stats.items():
+        check(cache.evictions > 0, f"{gt}: the native cache evicted nothing")
+
+
+def _rss_gb():
+    with open("/proc/self/status") as fh:
+        for line in fh:
+            if line.startswith("VmRSS"):
+                return int(line.split()[1]) / 1e6
+    return None
+
+
+def phase_streamed_path(torch, seed, lig, lig_crd, files,
+                        n_steps=STREAM_STEPS):
+    """bench_canonical.py's stress-md protocol on the port: 100 replicas at
+    300 K, hydrogen mass 4, classic Langevin at 0.25 fs with friction 5/ps,
+    B-spline regions holding the cloud plus halo plus 16 cells a side, one
+    fused three-grid StreamSet with room for 1.5 packs, segments of 50
+    steps; 100 warm-up steps, up to 2 drain rounds, ``n_steps`` timed
+    steps (STREAM_STEPS by default, cut from 1,000), and one profiled
+    short segment."""
+    from openmmgridforce_tpu_torch.grid import InterpolationMethod
+    from openmmgridforce_tpu_torch.io.streaming import StreamedGridEvaluator
+    from openmmgridforce_tpu_torch.mm import (StreamedBatchMD, StreamSet,
+                                              system_from_amber)
+    from openmmgridforce_tpu_torch.ops import gridgen
+    from openmmgridforce_tpu_torch.parallel import (init_replica_states,
+                                                    redraw_hot_velocities,
+                                                    replica_temperatures)
+
+    region = _ligand_region(lig_crd, STRESS_SPACING, 3, STREAM_MARGIN)
+    evs = [StreamedGridEvaluator(files[gt], InterpolationMethod.BSPLINE,
+                                 region_shape=region, device="cuda")
+           for gt in GRID_TYPES]
+    scals = [gridgen.auto_scaling_factors(gt, lig.charges, lig.sigmas,
+                                          lig.epsilons) for gt in GRID_TYPES]
+    ncells = int(np.prod(np.asarray(region) - 1))
+    pack_bytes = ncells * 64 * len(GRID_TYPES) * 4
+    sset = StreamSet(evs, scals, pack_budget_bytes=int(pack_bytes * 1.5))
+    system = system_from_amber(lig, dtype=torch.float32, hydrogen_mass=4.0,
+                               device="cuda")
+    md = StreamedBatchMD(sets=[sset], system=system, dt=STREAM_DT,
+                         friction=STREAM_FRICTION,
+                         refresh_steps=STREAM_REFRESH)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    states = init_replica_states(
+        gen, torch.as_tensor(lig_crd, dtype=torch.float32), system.masses,
+        300.0, STREAM_REPLICAS, device="cuda")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    states = md.run(states, 300.0, STREAM_WARM)
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    drained = []
+    for _ in range(STREAM_DRAIN_ROUNDS):
+        states, n_hot = redraw_hot_velocities(states, system.masses, 300.0,
+                                              STREAM_DRAIN_K)
+        drained.append(n_hot)
+        if n_hot == 0:
+            break
+        states = md.run(states, 300.0, STREAM_DRAIN_STEPS)
+    torch.cuda.synchronize()
+    segments0 = md.segments
+    t0 = time.perf_counter()
+    states = md.run(states, 300.0, n_steps)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    segments = md.segments - segments0
+
+    def segment():
+        nonlocal states
+        states = md.run(states, 300.0, STREAM_PROFILED_STEPS)
+        torch.cuda.synchronize()
+
+    wall_us, busy_us, n_ops, by_name = _profile(torch, segment,
+                                                host_ops=False)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    t_rep = replica_temperatures(states, system.masses)
+    finite = bool(torch.isfinite(states.positions).all()
+                  and torch.isfinite(states.velocities).all())
+    pack = next(iter(sset._packed.values()))[0] if sset._packed else None
+    emit({"phase": "streamed_path", "replicas": STREAM_REPLICAS,
+          "ligand_atoms": lig.natom, "stress_counts": STRESS_COUNTS,
+          "region_shape": list(region), "region_cells": ncells,
+          "dt_ps": STREAM_DT, "friction": STREAM_FRICTION,
+          "refresh_steps": STREAM_REFRESH, "warm_steps": STREAM_WARM,
+          "warm_s": t_warm, "drained_per_round": drained,
+          "timed_steps": [n_steps, STREAM_STEPS_REFERENCE],
+          "timed_s": t_run, "groups_last_segment": int(np.unique(
+              sset._starts, axis=0).shape[0]),
+          "segments": segments, "steps_per_s": n_steps / t_run,
+          "replica_steps_per_s": n_steps * STREAM_REPLICAS / t_run,
+          "profiled_segment": {
+              "steps": STREAM_PROFILED_STEPS, "wall_ms": wall_us / 1e3,
+              "device_ms_per_step": (busy_us / STREAM_PROFILED_STEPS / 1e3
+                                     if n_ops else "not measured"),
+              "device_ops_per_step": n_ops / STREAM_PROFILED_STEPS,
+              "device_busy_share": (busy_us / wall_us if n_ops
+                                    else "not measured"),
+              "top_device_ms": {k[:80]: v / 1e3 for k, v in top}},
+          "packs_built": sset.packs_built,
+          "direct_builds": sset.direct_builds,
+          "full_escalations": sset.full_escalations,
+          "crossing_retries": md.crossing_retries,
+          "region_misses": [ev.region_misses for ev in evs],
+          "fused_pack_gb": (pack.coeffs.numel() * pack.coeffs.element_size()
+                            / 1e9 if pack is not None else None),
+          "host_rss_gb": _rss_gb(),
+          "device_max_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "finite": finite, "median_T": float(t_rep.median()),
+          "max_T": float(t_rep.max())})
+    for ev in evs:
+        ev.close()
+    check(finite, "streamed_path: non-finite positions or velocities")
+    check(100.0 < float(t_rep.median()) < 600.0,
+          f"streamed_path: median T {float(t_rep.median())} K")
+    check(float(t_rep.max()) < 20000.0,
+          f"streamed_path: a replica reached {float(t_rep.max())} K")
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--stream-steps", type=int, default=STREAM_STEPS,
+                        help="timed steps of streamed_path (the stress-md "
+                             "protocol's are 1,000)")
     args = parser.parse_args(argv)
 
     import torch
@@ -1185,6 +1777,26 @@ def main(argv=None):
     launches["gridgen_values"]["bpmf_path"] = phase_bpmf_path(
         torch, args.seed, lig, lig_crd, rec, rec_crd, counts, origin)
 
+    lig, lig_crd, rec, rec_crd = synthetic_complex(args.seed)
+    checks_f64 = phase_float64_kernels(torch, rec, rec_crd, counts, origin,
+                                       sm_count)
+    launches_f64 = phase_float64_generation(torch, rec, rec_crd, counts,
+                                            origin)
+    # the tiles live in the checkout, in a directory .gitignore lists
+    workdir = tempfile.mkdtemp(prefix=".chip_smoke_tiles_",
+                               dir=os.path.dirname(os.path.abspath(__file__)))
+    try:
+        tiled_launches, files, deriv_files = phase_tiled_generation(
+            torch, rec, rec_crd, lig_crd, counts, origin, workdir)
+        for name, n in tiled_launches.items():
+            launches[name]["tiled_generation"] = n
+        phase_streamed_eval_check(torch, args.seed, lig, lig_crd, files,
+                                  deriv_files, counts)
+        phase_streamed_path(torch, args.seed, lig, lig_crd, files,
+                            args.stream_steps)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
     replaces = {
         "gridgen_values": "openmmgridforce_tpu/ops/pallas_gridgen.py:39",
         "gridgen_derivs":
@@ -1192,21 +1804,30 @@ def main(argv=None):
     # the gated error of each kernel: max |kernel - plain| over max |plain|
     # (per derivative slot for gridgen_derivs, whose raw sums reach 1e33)
     rel_key = {"gridgen_values": "rel_err", "gridgen_derivs": "rel_err_f32"}
-    emit({"kernels": [{
-        "name": name, "route": "cuda",
-        "source": f"openmmgridforce_tpu_torch/csrc/{name}.cu",
-        "replaces": replaces[name],
-        "launches": sum(launches[name].values()),
-        "launches_by_path": launches[name],
-        "max_abs_err": max(r["max_abs_err"] for r in per_type.values()),
-        "max_rel_err": max(r[rel_key[name]] for r in per_type.values()),
-        "ms": sum(r["ms"] for r in per_type.values()),
-        "plain_ms": sum(r["plain_ms"] for r in per_type.values()),
-        "bound_ms": sum(r["bound_ms"] for r in per_type.values()),
-        "bound_by": ("bytes" if all(r["bound_pipe"] == "bytes"
-                                    for r in per_type.values())
-                     else "operations"),
-        "library_ms": None} for name, per_type in checks.items()]})
+    def line(name, per_type, by_path, rel, source):
+        return {
+            "name": name, "route": "cuda",
+            "source": f"openmmgridforce_tpu_torch/csrc/{source}.cu",
+            "replaces": replaces[source],
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": max(r["max_abs_err"] for r in per_type.values()),
+            "max_rel_err": max(r[rel] for r in per_type.values()),
+            "ms": sum(r["ms"] for r in per_type.values()),
+            "plain_ms": sum(r["plain_ms"] for r in per_type.values()),
+            "bound_ms": sum(r["bound_ms"] for r in per_type.values()),
+            "bound_by": ("bytes" if all(r["bound_pipe"] == "bytes"
+                                        for r in per_type.values())
+                         else "operations"),
+            "library_ms": None}
+
+    # the float64 instantiations are timed over the whole bench grid (K1)
+    # and over the checked slabs (K2), kernel, twin and bound alike
+    emit({"kernels": [
+        line(name, per_type, launches[name], rel_key[name], name)
+        for name, per_type in checks.items()] + [
+        line(f"{name}_f64", checks_f64[name],
+             {"float64_generation": launches_f64[name]}, "rel_err", name)
+        for name in checks_f64]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

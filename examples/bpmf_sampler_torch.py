@@ -16,8 +16,11 @@ the temperature-ladder sampler with every rung batched on one device.
 Writes energies.dat and traj.xyz (and a checkpoint every 50 trials) into
 the work directory.
 
-Reading grid files (AlGDock NetCDF, V3) is not ported yet, and neither is
-the replica mesh (--dp/--sp): both raise.
+Without --generate-grids the grids are read from the files that
+input.json names under "grids" ("direct_elec", "LJr", "LJa"): AlGDock
+NetCDF (.nc, Angstrom and kcal/mol) or V3 binary (.grid), each a B-spline
+pack of its own, as in the JAX example. The replica mesh (--dp/--sp) is
+not ported yet and raises.
 """
 
 import argparse
@@ -66,6 +69,37 @@ def generate_grids(cfg, lig_crd, margin, spacing, device):
         device=device) for gt in GRID_TYPES]
 
 
+def file_binding(path, unit_conversion, scaling, device):
+    """The B-spline pack of one grid file (examples/bpmf_sampler.py's
+    get_grid_binding): AlGDock NetCDF in Angstrom, or V3 in nm; values
+    times ``unit_conversion``."""
+    import torch
+
+    from openmmgridforce_tpu_torch.grid import (InterpolationMethod,
+                                                grid_from_numpy)
+    from openmmgridforce_tpu_torch.mm import GridBinding
+    from openmmgridforce_tpu_torch.ops.packed import pack_grid
+    from openmmgridforce_tpu_torch.units import ANGSTROM_TO_NM
+
+    if path.endswith(".nc"):
+        from openmmgridforce_tpu_torch.io import read_netcdf
+        data = read_netcdf(path)
+        counts = data["counts"]
+        spacing = tuple(s * ANGSTROM_TO_NM for s in data["spacing"])
+        origin = tuple(o * ANGSTROM_TO_NM for o in data["origin"])
+        vals = np.asarray(data["vals"]).reshape(counts) * unit_conversion
+    else:
+        from openmmgridforce_tpu_torch.io import load_v3
+        d = load_v3(path)
+        spacing, origin = d.spacing, d.origin
+        vals = d.vals * unit_conversion
+    grid = grid_from_numpy(vals, spacing, origin,
+                           interp_method=InterpolationMethod.BSPLINE,
+                           dtype=torch.float32, device=device)
+    return GridBinding(grid=pack_grid(grid), scaling=torch.as_tensor(
+        scaling, dtype=torch.float32, device=device))
+
+
 def fused_bindings(grids, scalings, device):
     """GridBindings of the grids, fused as one table where it fits, else
     as (charge + ljr | lja)."""
@@ -90,8 +124,8 @@ def main(argv=None):
     ap.add_argument("-i", "--input", required=True)
     ap.add_argument("--n-trials", type=int, default=100)
     ap.add_argument("--generate-grids", action="store_true",
-                    help="regenerate grids from the receptor (the only "
-                         "grid route ported so far)")
+                    help="regenerate grids from the receptor instead of "
+                         "reading the files named under 'grids'")
     ap.add_argument("--work-dir", default=None)
     ap.add_argument("--grid-spacing", type=float, default=0.025,
                     help="spacing (nm) for --generate-grids")
@@ -161,11 +195,7 @@ def main(argv=None):
     bindings = []
     # the reference adds grid forces only for the complex ('CD') job;
     # 'BC' samples the isolated ligand (sampler.py:484-521)
-    if run_job != "BC":
-        if not args.generate_grids:
-            raise NotImplementedError(
-                "reading grid files (NetCDF, V3) is not ported yet (ROADMAP "
-                "Queue A item 10); pass --generate-grids")
+    if run_job != "BC" and args.generate_grids:
         t0 = time.perf_counter()
         grids = generate_grids(cfg, lig_crd, margin=1.0,
                                spacing=args.grid_spacing, device=device)
@@ -173,6 +203,16 @@ def main(argv=None):
         del grids
         print(f"grids generated and packed in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
+    elif run_job != "BC":
+        gpaths = require(cfg, "grids", "the top level (or pass "
+                         "--generate-grids)")
+        specs = [(require(gpaths, "direct_elec", "'grids'"), KCAL_TO_KJ),
+                 (require(gpaths, "LJr", "'grids'"),
+                  np.sqrt(KCAL_TO_KJ) * 1.0e6),
+                 (require(gpaths, "LJa", "'grids'"),
+                  np.sqrt(KCAL_TO_KJ) * 1.0e3)]
+        bindings = [file_binding(path, conv, scal, device)
+                    for (path, conv), scal in zip(specs, scalings)]
 
     nstate = require(cfg, "nstate", "the top level")
     scfg = SamplerConfig(

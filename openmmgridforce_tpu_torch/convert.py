@@ -161,3 +161,35 @@ def states_from_arrays(positions, velocities, *, seed: int,
     gen.manual_seed(int(seed))
     return MDState(_float(positions, dtype, device),
                    _float(velocities, dtype, device), gen)
+
+
+def grid_from_jax(vals, spacing, origin, *, derivs=None, device=None,
+                  **fields) -> Grid:
+    """The port's Grid from the arrays of a JAX Grid as read from a file
+    (``io.grid_from_file``), keeping their dtype; ``fields`` are the static
+    fields (``interp_method``, ``grid_cap`` ...)."""
+    from .grid import grid_from_numpy
+
+    return grid_from_numpy(np.asarray(vals), np.asarray(spacing),
+                           np.asarray(origin),
+                           derivs=None if derivs is None
+                           else np.asarray(derivs),
+                           device=device, **fields)
+
+
+STREAM_SET_ARRAYS = ("_starts", "_full", "_calm")
+STREAM_SET_COUNTERS = ("packs_built", "direct_builds", "full_escalations")
+
+
+def stream_set_bookkeeping(stream_set) -> dict:
+    """The region bookkeeping of a StreamSet of either package as numpy
+    arrays (absent ones as empty arrays), so that two can be compared:
+    the per-replica starts, full-grid flags and calm counts, and the
+    build and escalation counters."""
+    out = {}
+    for name in STREAM_SET_ARRAYS:
+        value = getattr(stream_set, name)
+        out[name] = np.zeros(0) if value is None else np.asarray(value)
+    for name in STREAM_SET_COUNTERS:
+        out[name] = np.asarray(getattr(stream_set, name))
+    return out

@@ -4,7 +4,10 @@
 // Replaces the Pallas TPU kernel
 // openmmgridforce_tpu/ops/pallas_gridgen_derivs.py (_derivs_kernel, entry
 // generate_raw_derivs_pallas). For every grid point (flat index
-// i*ny*nz + j*nz + k, position origin + (i, j, k) * spacing) it computes
+// i*ny*nz + j*nz + k, position origin + (i0 + i, j0 + j, k0 + k) *
+// spacing, where (i0, j0, k0) places the launch's points in a larger grid,
+// so that a slab of a tiled file is the same function of the global index
+// as the whole grid) it computes
 // the 27 uncapped, unscaled mixed partials d^(a+b+c)/dx^a dy^b dz^c,
 // a, b, c <= 2, of
 //
@@ -78,6 +81,17 @@
 //   transpose of 161 MB per grid afterwards. Instead the block stages its
 //   128 x 27 sums in shared memory (stride 27 is odd: no bank conflicts)
 //   and copies them out as one contiguous, coalesced run.
+// - Float64. The kernel is a template on the scalar type; the float64
+//   instantiation (gridgen_derivs_launch_f64) takes a [A, 4] float64 atom
+//   table and writes float64 sums. FP64 has no special-function pipe: 1/r
+//   is the double rsqrt(), a few FP64 operations. It keeps no partials:
+//   a float64 sum of 9k terms rounds at about 1e-12 of its largest term,
+//   far inside its 1e-10 gate, and 27 partials more (54 registers) would
+//   crowd the 27 totals and the pair's terms out of the register file
+//   (ptxas prints its count and spills). The slot constants that the
+//   float32 kernel applies where a partial joins its total are applied
+//   once, after the atom loop. Its bound is the FP64 pipe, about 34
+//   TFLOP/s on an H100 SXM, half the FP32 rate.
 // - Not done, on purpose: tensor cores (the sums are no matrix product at
 //   a precision the gates allow) and cluster multicast of the atom tiles
 //   (the atoms are 146 KB and live in L2; shared memory sees one broadcast
@@ -93,6 +107,13 @@ constexpr int kAtomBlock = 32;
 // pairs in flight in the atom loop
 constexpr int kUnroll = 2;
 constexpr int kSlots = 27;
+
+// the float64 instantiation's launch: no partials (see the note above);
+// unrolled by 2 it takes 122-124 registers and runs 1-3% faster than not
+// unrolled (118), 64 threads a block the same (kernel_variants.py, an H100
+// SXM at 700 W)
+constexpr int kThreads64 = 128;
+constexpr int kUnroll64 = 2;
 
 // U = K / r^m. c_n = (-1)^n m (m+1) ... (m+n-1) is the coefficient of the
 // n-th radial derivative (kept for reference: the kernel needs only
@@ -132,122 +153,197 @@ __device__ __forceinline__ float rsqrt_approx(float x) {
   return y;
 }
 
+// a float64 atom (x, y, z, K): two 16-byte loads
+struct __align__(16) Atom64 {
+  double x, y, z, w;
+};
+
+// the scalar type's arithmetic and launch shape
+template <typename T>
+struct Real;
+template <>
+struct Real<float> {
+  using Atom = float4;
+  static constexpr int threads = kThreads, atom_block = kAtomBlock;
+  // partials of atom_block atoms, joined into the totals
+  static constexpr bool partials = true;
+  static constexpr float r2_min = 4e-4f;
+  static __device__ __forceinline__ float mul_rn(float a, float b) {
+    return __fmul_rn(a, b);
+  }
+  static __device__ __forceinline__ float add_rn(float a, float b) {
+    return __fadd_rn(a, b);
+  }
+  static __device__ __forceinline__ float sub_rn(float a, float b) {
+    return __fsub_rn(a, b);
+  }
+  static __device__ __forceinline__ float fma(float a, float b, float c) {
+    return fmaf(a, b, c);
+  }
+  static __device__ __forceinline__ float max(float a, float b) {
+    return fmaxf(a, b);
+  }
+  static __device__ __forceinline__ float rsqrt(float x) {
+    return rsqrt_approx(x);
+  }
+};
+template <>
+struct Real<double> {
+  using Atom = Atom64;
+  static constexpr int threads = kThreads64, atom_block = kThreads64;
+  static constexpr bool partials = false;
+  static constexpr double r2_min = 4e-4;
+  static __device__ __forceinline__ double mul_rn(double a, double b) {
+    return __dmul_rn(a, b);
+  }
+  static __device__ __forceinline__ double add_rn(double a, double b) {
+    return __dadd_rn(a, b);
+  }
+  static __device__ __forceinline__ double sub_rn(double a, double b) {
+    return __dsub_rn(a, b);
+  }
+  static __device__ __forceinline__ double fma(double a, double b,
+                                               double c) {
+    return ::fma(a, b, c);
+  }
+  static __device__ __forceinline__ double max(double a, double b) {
+    return fmax(a, b);
+  }
+  static __device__ __forceinline__ double rsqrt(double x) {
+    return ::rsqrt(x);
+  }
+};
+
 // adds one atom's 27 derivative terms at displacement (dx, dy, dz) to
 // part; slots 1-3, 5, 6, 8 and 13 lack their constant (see join)
-template <int GRID_TYPE>
-__device__ __forceinline__ void add_pair(float dx, float dy, float dz,
-                                         float K, float (&part)[kSlots]) {
+template <int GRID_TYPE, typename T>
+__device__ __forceinline__ void add_pair(T dx, T dy, T dz, T K,
+                                         T (&part)[kSlots]) {
   using F = Field<GRID_TYPE>;
-  const float r2 = fmaxf(fmaf(dz, dz, fmaf(dy, dy, dx * dx)), 4e-4f);
-  const float inv_r = rsqrt_approx(r2);  // r >= 0.02 nm
+  using R = Real<T>;
+  const T r2 = R::max(R::fma(dz, dz, R::fma(dy, dy, dx * dx)), R::r2_min);
+  const T inv_r = R::rsqrt(r2);  // r >= 0.02 nm
 
-  float inv_rm = inv_r;
+  T inv_rm = inv_r;
   if (F::m > 1) {
-    const float i3 = inv_r * inv_r * inv_r;
+    const T i3 = inv_r * inv_r * inv_r;
     inv_rm = i3 * i3;
     if (F::m == 12) inv_rm *= inv_rm;
   }
-  const float P0 = K * inv_rm;  // U
-  const float P1 = P0 * inv_r;
-  const float P2 = P1 * inv_r;
-  const float P3 = P2 * inv_r;
-  const float P4 = P3 * inv_r;
-  const float P5 = P4 * inv_r;
-  const float P6 = P5 * inv_r;
+  const T P0 = K * inv_rm;  // U
+  const T P1 = P0 * inv_r;
+  const T P2 = P1 * inv_r;
+  const T P3 = P2 * inv_r;
+  const T P4 = P3 * inv_r;
+  const T P5 = P4 * inv_r;
+  const T P6 = P5 * inv_r;
 
-  const float nx = dx * inv_r;
-  const float ny = dy * inv_r;
-  const float nz = dz * inv_r;
-  const float nx2 = nx * nx;
-  const float ny2 = ny * ny;
-  const float nz2 = nz * nz;
-  const float xy = nx * ny;
-  const float xz = nx * nz;
-  const float yz = ny * nz;
-  const float qxy = nx2 * ny2;
-  const float qxz = nx2 * nz2;
-  const float qyz = ny2 * nz2;
-  const float sxy = nx2 + ny2;
-  const float sxz = nx2 + nz2;
-  const float syz = ny2 + nz2;
+  const T nx = dx * inv_r;
+  const T ny = dy * inv_r;
+  const T nz = dz * inv_r;
+  const T nx2 = nx * nx;
+  const T ny2 = ny * ny;
+  const T nz2 = nz * nz;
+  const T xy = nx * ny;
+  const T xz = nx * nz;
+  const T yz = ny * nz;
+  const T qxy = nx2 * ny2;
+  const T qxz = nx2 * nz2;
+  const T qyz = ny2 * nz2;
+  const T sxy = nx2 + ny2;
+  const T sxz = nx2 + nz2;
+  const T syz = ny2 + nz2;
 
   part[0] += P0;
   // order 1: t1 P1 n (t1 at the join)
-  part[1] = fmaf(P1, nx, part[1]);
-  part[2] = fmaf(P1, ny, part[2]);
-  part[3] = fmaf(P1, nz, part[3]);
+  part[1] = R::fma(P1, nx, part[1]);
+  part[2] = R::fma(P1, ny, part[2]);
+  part[3] = R::fma(P1, nz, part[3]);
   // order 2: P2 (t2 n_i n_j + t1 delta_ij) (t2 of xy, xz, yz at the join)
-  part[4] = fmaf(P2, fmaf(F::t2, nx2, F::c1), part[4]);
-  part[5] = fmaf(P2, xy, part[5]);
-  part[6] = fmaf(P2, xz, part[6]);
-  part[7] = fmaf(P2, fmaf(F::t2, ny2, F::c1), part[7]);
-  part[8] = fmaf(P2, yz, part[8]);
-  part[9] = fmaf(P2, fmaf(F::t2, nz2, F::c1), part[9]);
+  part[4] = R::fma(P2, R::fma(F::t2, nx2, F::c1), part[4]);
+  part[5] = R::fma(P2, xy, part[5]);
+  part[6] = R::fma(P2, xz, part[6]);
+  part[7] = R::fma(P2, R::fma(F::t2, ny2, F::c1), part[7]);
+  part[8] = R::fma(P2, yz, part[8]);
+  part[9] = R::fma(P2, R::fma(F::t2, nz2, F::c1), part[9]);
   // order 3: iij = P3 n_j (t3 n_i^2 + t2); xyz = t3 P3 nx ny nz (t3 at
   // the join)
-  const float P3x = P3 * nx;
-  const float P3y = P3 * ny;
-  const float P3z = P3 * nz;
-  const float g3x = fmaf(F::t3, nx2, F::t2);
-  const float g3y = fmaf(F::t3, ny2, F::t2);
-  const float g3z = fmaf(F::t3, nz2, F::t2);
-  part[10] = fmaf(P3y, g3x, part[10]);
-  part[11] = fmaf(P3z, g3x, part[11]);
-  part[12] = fmaf(P3x, g3y, part[12]);
-  part[13] = fmaf(P3z, xy, part[13]);
-  part[14] = fmaf(P3z, g3y, part[14]);
-  part[15] = fmaf(P3x, g3z, part[15]);
-  part[16] = fmaf(P3y, g3z, part[16]);
+  const T P3x = P3 * nx;
+  const T P3y = P3 * ny;
+  const T P3z = P3 * nz;
+  const T g3x = R::fma(F::t3, nx2, F::t2);
+  const T g3y = R::fma(F::t3, ny2, F::t2);
+  const T g3z = R::fma(F::t3, nz2, F::t2);
+  part[10] = R::fma(P3y, g3x, part[10]);
+  part[11] = R::fma(P3z, g3x, part[11]);
+  part[12] = R::fma(P3x, g3y, part[12]);
+  part[13] = R::fma(P3z, xy, part[13]);
+  part[14] = R::fma(P3z, g3y, part[14]);
+  part[15] = R::fma(P3x, g3z, part[15]);
+  part[16] = R::fma(P3y, g3z, part[16]);
   // order 4: iijj = P4 (t4 n_i^2 n_j^2 + t3 (n_i^2 + n_j^2) + t2);
   // iijk = P4 n_j n_k (t4 n_i^2 + t3)
-  part[17] = fmaf(P4, fmaf(F::t4, qxy, fmaf(F::t3, sxy, F::t2)), part[17]);
-  part[18] = fmaf(P4, fmaf(F::t4, qxz, fmaf(F::t3, sxz, F::t2)), part[18]);
-  part[19] = fmaf(P4, fmaf(F::t4, qyz, fmaf(F::t3, syz, F::t2)), part[19]);
-  part[20] = fmaf(P4 * yz, fmaf(F::t4, nx2, F::t3), part[20]);
-  part[21] = fmaf(P4 * xz, fmaf(F::t4, ny2, F::t3), part[21]);
-  part[22] = fmaf(P4 * xy, fmaf(F::t4, nz2, F::t3), part[22]);
+  part[17] = R::fma(P4, R::fma(F::t4, qxy, R::fma(F::t3, sxy, F::t2)),
+                    part[17]);
+  part[18] = R::fma(P4, R::fma(F::t4, qxz, R::fma(F::t3, sxz, F::t2)),
+                    part[18]);
+  part[19] = R::fma(P4, R::fma(F::t4, qyz, R::fma(F::t3, syz, F::t2)),
+                    part[19]);
+  part[20] = R::fma(P4 * yz, R::fma(F::t4, nx2, F::t3), part[20]);
+  part[21] = R::fma(P4 * xz, R::fma(F::t4, ny2, F::t3), part[21]);
+  part[22] = R::fma(P4 * xy, R::fma(F::t4, nz2, F::t3), part[22]);
   // order 5: iijjk = P5 n_k (t5 n_i^2 n_j^2 + t4 (n_i^2 + n_j^2) + t3)
-  part[23] = fmaf(P5 * nz, fmaf(F::t5, qxy, fmaf(F::t4, sxy, F::t3)),
-                  part[23]);
-  part[24] = fmaf(P5 * ny, fmaf(F::t5, qxz, fmaf(F::t4, sxz, F::t3)),
-                  part[24]);
-  part[25] = fmaf(P5 * nx, fmaf(F::t5, qyz, fmaf(F::t4, syz, F::t3)),
-                  part[25]);
+  part[23] = R::fma(P5 * nz, R::fma(F::t5, qxy, R::fma(F::t4, sxy, F::t3)),
+                    part[23]);
+  part[24] = R::fma(P5 * ny, R::fma(F::t5, qxz, R::fma(F::t4, sxz, F::t3)),
+                    part[24]);
+  part[25] = R::fma(P5 * nx, R::fma(F::t5, qyz, R::fma(F::t4, syz, F::t3)),
+                    part[25]);
   // order 6: P6 (t6 nx^2 ny^2 nz^2 + t5 (sum of n_i^2 n_j^2)
   //              + t4 (sum of n_i^2) + t3)
-  part[26] = fmaf(
+  part[26] = R::fma(
       P6,
-      fmaf(F::t6, qxy * nz2,
-           fmaf(F::t5, (qxy + qxz) + qyz, fmaf(F::t4, sxy + nz2, F::t3))),
+      R::fma(F::t6, qxy * nz2,
+             R::fma(F::t5, (qxy + qxz) + qyz,
+                    R::fma(F::t4, sxy + nz2, F::t3))),
       part[26]);
+}
+
+// the constant that multiplies slot s as a whole: applied where a partial
+// joins the total (float32), or once after the atom loop (float64)
+template <int GRID_TYPE>
+__device__ __forceinline__ float slot_constant(int s) {
+  using F = Field<GRID_TYPE>;
+  return (s >= 1 && s <= 3)             ? F::c1
+         : (s == 5 || s == 6 || s == 8) ? F::t2
+         : (s == 13)                    ? F::t3
+                                        : 1.0f;
 }
 
 // adds a block of partials to the totals; the slots that one constant
 // multiplies as a whole take it here, inside the FMA
-template <int GRID_TYPE>
-__device__ __forceinline__ void join(const float (&part)[kSlots],
-                                     float (&acc)[kSlots]) {
-  using F = Field<GRID_TYPE>;
+template <int GRID_TYPE, typename T>
+__device__ __forceinline__ void join(const T (&part)[kSlots],
+                                     T (&acc)[kSlots]) {
 #pragma unroll
   for (int s = 0; s < kSlots; ++s) {
-    const float c = (s >= 1 && s <= 3)             ? F::c1
-                    : (s == 5 || s == 6 || s == 8) ? F::t2
-                    : (s == 13)                    ? F::t3
-                                                   : 1.0f;
-    acc[s] = fmaf(c, part[s], acc[s]);
+    const float c = slot_constant<GRID_TYPE>(s);
+    acc[s] = Real<T>::fma(c, part[s], acc[s]);
   }
 }
 
-template <int GRID_TYPE>
-__global__ void __launch_bounds__(kThreads)
-gridgen_derivs_kernel(const float4* __restrict__ atoms, int n_atoms,
-                      float* __restrict__ out, long long total, int ny,
-                      int nz, float ox, float oy, float oz, float sx,
-                      float sy, float sz) {
-  __shared__ float4 tile[kThreads];
-  __shared__ float stage[kThreads * kSlots];
+template <int GRID_TYPE, typename T>
+__global__ void __launch_bounds__(Real<T>::threads)
+gridgen_derivs_kernel(const typename Real<T>::Atom* __restrict__ atoms,
+                      int n_atoms, T* __restrict__ out, long long total,
+                      int ny, int nz, int i0, int j0, int k0, T ox, T oy,
+                      T oz, T sx, T sy, T sz) {
+  using R = Real<T>;
+  constexpr int kThreadsT = R::threads, kAtomBlockT = R::atom_block;
+  __shared__ typename R::Atom tile[kThreadsT];
+  __shared__ T stage[kThreadsT * kSlots];
 
-  const long long p0 = (long long)blockIdx.x * kThreads;
+  const long long p0 = (long long)blockIdx.x * kThreadsT;
   const long long p = p0 + threadIdx.x;
   const long long q = p < total ? p : total - 1;
   const long long nyz = (long long)ny * nz;
@@ -258,33 +354,47 @@ gridgen_derivs_kernel(const float4* __restrict__ atoms, int n_atoms,
   // rounded multiply, then rounded add, as the reference forms the point:
   // a contracted FMA moves it by an ulp, and dx = gx - x_atom turns that
   // into a relative error of 1e-5 near an atom
-  const float gx = __fadd_rn(ox, __fmul_rn((float)i, sx));
-  const float gy = __fadd_rn(oy, __fmul_rn((float)j, sy));
-  const float gz = __fadd_rn(oz, __fmul_rn((float)k, sz));
+  const T gx = R::add_rn(ox, R::mul_rn((T)(i0 + i), sx));
+  const T gy = R::add_rn(oy, R::mul_rn((T)(j0 + j), sy));
+  const T gz = R::add_rn(oz, R::mul_rn((T)(k0 + k), sz));
 
-  float acc[kSlots];
+  T acc[kSlots];
 #pragma unroll
-  for (int s = 0; s < kSlots; ++s) acc[s] = 0.0f;
+  for (int s = 0; s < kSlots; ++s) acc[s] = T(0);
 
-  for (int a0 = 0; a0 < n_atoms; a0 += kThreads) {
+  for (int a0 = 0; a0 < n_atoms; a0 += kThreadsT) {
     const int a = a0 + threadIdx.x;
     if (a < n_atoms) tile[threadIdx.x] = atoms[a];
     __syncthreads();
-    const int n_tile = min(kThreads, n_atoms - a0);
-    for (int b0 = 0; b0 < n_tile; b0 += kAtomBlock) {
-      const int b1 = min(b0 + kAtomBlock, n_tile);
-      float part[kSlots];
+    const int n_tile = min(kThreadsT, n_atoms - a0);
+    if constexpr (R::partials) {
+      for (int b0 = 0; b0 < n_tile; b0 += kAtomBlockT) {
+        const int b1 = min(b0 + kAtomBlockT, n_tile);
+        T part[kSlots];
 #pragma unroll
-      for (int s = 0; s < kSlots; ++s) part[s] = 0.0f;
+        for (int s = 0; s < kSlots; ++s) part[s] = T(0);
 #pragma unroll(kUnroll)
-      for (int b = b0; b < b1; ++b) {
-        const float4 at = tile[b];
-        add_pair<GRID_TYPE>(__fsub_rn(gx, at.x), __fsub_rn(gy, at.y),
-                            __fsub_rn(gz, at.z), at.w, part);
+        for (int b = b0; b < b1; ++b) {
+          const typename R::Atom at = tile[b];
+          add_pair<GRID_TYPE, T>(R::sub_rn(gx, at.x), R::sub_rn(gy, at.y),
+                                 R::sub_rn(gz, at.z), at.w, part);
+        }
+        join<GRID_TYPE, T>(part, acc);
       }
-      join<GRID_TYPE>(part, acc);
+    } else {
+#pragma unroll(kUnroll64)
+      for (int b = 0; b < n_tile; ++b) {
+        const typename R::Atom at = tile[b];
+        add_pair<GRID_TYPE, T>(R::sub_rn(gx, at.x), R::sub_rn(gy, at.y),
+                               R::sub_rn(gz, at.z), at.w, acc);
+      }
     }
     __syncthreads();
+  }
+  if constexpr (!R::partials) {
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s)
+      acc[s] *= (T)slot_constant<GRID_TYPE>(s);
   }
 
 #pragma unroll
@@ -293,78 +403,113 @@ gridgen_derivs_kernel(const float4* __restrict__ atoms, int n_atoms,
   // the block's points are one contiguous run of out; the ragged tail of
   // the last block is cut here
   const long long left = total - p0;
-  const int n_out = (int)(left < kThreads ? left : kThreads) * kSlots;
-  float* dst = out + p0 * kSlots;
-  for (int t = threadIdx.x; t < n_out; t += kThreads) dst[t] = stage[t];
+  const int n_out = (int)(left < kThreadsT ? left : kThreadsT) * kSlots;
+  T* dst = out + p0 * kSlots;
+  for (int t = threadIdx.x; t < n_out; t += kThreadsT) dst[t] = stage[t];
 }
 
-template <int GRID_TYPE>
-int launch(const float4* atoms, int n_atoms, float* out, long long total,
-           int ny, int nz, float ox, float oy, float oz, float sx, float sy,
-           float sz, unsigned blocks, cudaStream_t stream) {
-  gridgen_derivs_kernel<GRID_TYPE><<<blocks, kThreads, 0, stream>>>(
-      atoms, n_atoms, out, total, ny, nz, ox, oy, oz, sx, sy, sz);
+template <int GRID_TYPE, typename T>
+int launch(const void* atoms, int n_atoms, void* out, long long total,
+           int ny, int nz, int i0, int j0, int k0, T ox, T oy, T oz, T sx,
+           T sy, T sz, unsigned blocks, cudaStream_t stream) {
+  gridgen_derivs_kernel<GRID_TYPE, T><<<blocks, Real<T>::threads, 0,
+                                        stream>>>(
+      static_cast<const typename Real<T>::Atom*>(atoms), n_atoms,
+      static_cast<T*>(out), total, ny, nz, i0, j0, k0, ox, oy, oz, sx, sy,
+      sz);
   return (int)cudaGetLastError();
 }
 
-template <int GRID_TYPE>
-int resident_blocks(int* per_sm) {
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      per_sm, gridgen_derivs_kernel<GRID_TYPE>, kThreads, 0);
-}
-
-}  // namespace
-
-extern "C" int gridgen_derivs_launch(const void* atoms, int n_atoms,
-                                     void* out, int nx, int ny, int nz,
-                                     float ox, float oy, float oz, float sx,
-                                     float sy, float sz, int grid_type,
-                                     int device, void* stream) {
+template <typename T>
+int launch_any(const void* atoms, int n_atoms, void* out, int nx, int ny,
+               int nz, int i0, int j0, int k0, T ox, T oy, T oz, T sx, T sy,
+               T sz, int grid_type, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const long long total = (long long)nx * ny * nz;
   if (total <= 0) return 0;
-  const long long blocks = (total + kThreads - 1) / kThreads;
+  const long long blocks = (total + Real<T>::threads - 1) / Real<T>::threads;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const float4* a = static_cast<const float4*>(atoms);
-  float* o = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (grid_type) {
     case 0:
-      return launch<0>(a, n_atoms, o, total, ny, nz, ox, oy, oz, sx, sy, sz,
-                       (unsigned)blocks, s);
+      return launch<0, T>(atoms, n_atoms, out, total, ny, nz, i0, j0, k0, ox,
+                          oy, oz, sx, sy, sz, (unsigned)blocks, s);
     case 1:
-      return launch<1>(a, n_atoms, o, total, ny, nz, ox, oy, oz, sx, sy, sz,
-                       (unsigned)blocks, s);
+      return launch<1, T>(atoms, n_atoms, out, total, ny, nz, i0, j0, k0, ox,
+                          oy, oz, sx, sy, sz, (unsigned)blocks, s);
     case 2:
-      return launch<2>(a, n_atoms, o, total, ny, nz, ox, oy, oz, sx, sy, sz,
-                       (unsigned)blocks, s);
+      return launch<2, T>(atoms, n_atoms, out, total, ny, nz, i0, j0, k0, ox,
+                          oy, oz, sx, sy, sz, (unsigned)blocks, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
-// the launch's shape for a grid of nx x ny x nz points: blocks, threads
-// per block, and the blocks of this kernel that one SM holds at a time
-extern "C" int gridgen_derivs_launch_shape(int nx, int ny, int nz,
-                                           int grid_type, int device,
-                                           long long* blocks, int* threads,
-                                           int* blocks_per_sm) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
+template <int GRID_TYPE, typename T>
+int resident_blocks(int* per_sm) {
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      per_sm, gridgen_derivs_kernel<GRID_TYPE, T>, Real<T>::threads, 0);
+}
+
+template <typename T>
+int launch_shape(int nx, int ny, int nz, int grid_type, long long* blocks,
+                 int* threads, int* blocks_per_sm) {
   const long long total = (long long)nx * ny * nz;
-  *blocks = (total + kThreads - 1) / kThreads;
-  *threads = kThreads;
+  *blocks = (total + Real<T>::threads - 1) / Real<T>::threads;
+  *threads = Real<T>::threads;
   switch (grid_type) {
     case 0:
-      return resident_blocks<0>(blocks_per_sm);
+      return resident_blocks<0, T>(blocks_per_sm);
     case 1:
-      return resident_blocks<1>(blocks_per_sm);
+      return resident_blocks<1, T>(blocks_per_sm);
     case 2:
-      return resident_blocks<2>(blocks_per_sm);
+      return resident_blocks<2, T>(blocks_per_sm);
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+}  // namespace
+
+// float32 atoms [A, 4] -> float32 out [nx, ny, nz, 27]; (i0, j0, k0) is
+// the index of the launch's first point in the grid that origin and
+// spacing describe
+extern "C" int gridgen_derivs_launch(const void* atoms, int n_atoms,
+                                     void* out, int nx, int ny, int nz,
+                                     int i0, int j0, int k0, float ox,
+                                     float oy, float oz, float sx, float sy,
+                                     float sz, int grid_type, int device,
+                                     void* stream) {
+  return launch_any<float>(atoms, n_atoms, out, nx, ny, nz, i0, j0, k0, ox,
+                           oy, oz, sx, sy, sz, grid_type, device, stream);
+}
+
+// the same in float64
+extern "C" int gridgen_derivs_launch_f64(const void* atoms, int n_atoms,
+                                         void* out, int nx, int ny, int nz,
+                                         int i0, int j0, int k0, double ox,
+                                         double oy, double oz, double sx,
+                                         double sy, double sz, int grid_type,
+                                         int device, void* stream) {
+  return launch_any<double>(atoms, n_atoms, out, nx, ny, nz, i0, j0, k0, ox,
+                            oy, oz, sx, sy, sz, grid_type, device, stream);
+}
+
+// the launch's shape for a grid of nx x ny x nz points: blocks, threads
+// per block, and the blocks of this kernel that one SM holds at a time;
+// f64 selects the float64 instantiation
+extern "C" int gridgen_derivs_launch_shape(int nx, int ny, int nz,
+                                           int grid_type, int f64,
+                                           int device, long long* blocks,
+                                           int* threads,
+                                           int* blocks_per_sm) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  return f64 ? launch_shape<double>(nx, ny, nz, grid_type, blocks, threads,
+                                    blocks_per_sm)
+             : launch_shape<float>(nx, ny, nz, grid_type, blocks, threads,
+                                   blocks_per_sm);
 }
 
 extern "C" const char* gridgen_derivs_error_string(int err) {

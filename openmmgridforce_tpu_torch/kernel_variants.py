@@ -7,11 +7,14 @@ some of them replaced, runs every copy on the full-size synthetic complex
 of ``chip_smoke.py`` and prints one JSON line per variant: registers,
 milliseconds per grid type, and the error against the plain twin (float32
 over the whole grid for the values kernel, float64 over slabs of x-planes
-for the derivative kernel). The first variant of each kernel is the source
+for the derivative kernel). The ``*_f64`` lists vary the float64
+instantiation's launch constants (``k*64``) and time it with float64 atoms
+against the float64 twins. The first variant of each list is the source
 as it stands. It changes nothing in the package: it is how the shipped
 constants were chosen, and how to choose them again on another card.
 
     python -m openmmgridforce_tpu_torch.kernel_variants [values] [derivs]
+        [values_f64] [derivs_f64]
 
 (from the repository root, which holds ``chip_smoke.py``).
 """
@@ -45,9 +48,9 @@ VARIANTS = {
         # 1/r^2 by squaring an rsqrt instead of one reciprocal: a multiply
         # more for the two Lennard-Jones types
         ("1/r^2 from the rsqrt", {}, [
-            ("const float inv_r2 = rcp_approx(r2);",
-             "const float inv_r = rsqrt_approx(r2);\n"
-             "            const float inv_r2 = inv_r * inv_r;")]),
+            ("const T inv_r2 = R::rcp(r2);",
+             "const T inv_r = R::rsqrt(r2);\n"
+             "            const T inv_r2 = inv_r * inv_r;")]),
     ],
     "gridgen_derivs": [
         ("as shipped", {}, []),
@@ -56,16 +59,40 @@ VARIANTS = {
         ("atom loop not unrolled", {"kUnroll": 1}, []),
         ("atom loop unrolled by 4", {"kUnroll": 4}, []),
         ("at least 4 blocks per SM", {}, [
-            ("__launch_bounds__(kThreads)\ngridgen_derivs_kernel",
-             "__launch_bounds__(kThreads, 4)\ngridgen_derivs_kernel")]),
+            ("__launch_bounds__(Real<T>::threads)\ngridgen_derivs_kernel",
+             "__launch_bounds__(Real<T>::threads, 4)\n"
+             "gridgen_derivs_kernel")]),
+    ],
+    "gridgen_values_f64": [
+        ("as shipped", {}, []),
+        ("2 points per thread", {"kPoints64": 2}, []),
+        ("8 points per thread", {"kPoints64": 8, "kMinBlocks64": 2}, []),
+        ("room for 2 blocks per SM", {"kMinBlocks64": 2}, []),
+        ("room for 6 blocks per SM", {"kMinBlocks64": 6}, []),
+        ("atom loop not unrolled", {"kUnroll64": 1}, []),
+        ("atom loop unrolled by 2", {"kUnroll64": 2}, []),
+        ("256 threads per block",
+         {"kThreads64": 256, "kTile64": 256, "kAtomBlock64": 256,
+          "kMinBlocks64": 2}, []),
+    ],
+    "gridgen_derivs_f64": [
+        ("as shipped", {}, []),
+        ("atom loop not unrolled", {"kUnroll64": 1}, []),
+        ("64 threads per block", {"kThreads64": 64}, []),
     ],
 }
+
+
+def library(name: str) -> str:
+    """The library a variant list edits: the float64 lists edit the same
+    source as the float32 ones."""
+    return name.removesuffix("_f64")
 
 
 def variant_source(name: str, constants: dict, edits: list) -> str:
     """The kernel's source with the named constants and texts replaced;
     raises if a replacement does not apply exactly once."""
-    (src,) = cuda_build.LIBRARIES[name]
+    (src,) = cuda_build.LIBRARIES[library(name)]
     text = (cuda_build.CSRC / src).read_text()
     for const, value in constants.items():
         text, n = re.subn(rf"(constexpr int {const} = )\d+;",
@@ -105,8 +132,17 @@ def _build_all(name: str):
     return built
 
 
-def _registers(log: str) -> list:
-    return [int(r) for r in re.findall(r"Used (\d+) registers", log)]
+def _registers(log: str, f64: bool) -> list:
+    """Registers of the instantiations of one scalar type, in log order."""
+    out, entry = [], ""
+    for line in log.splitlines():
+        found = re.search(r"Compiling entry function '([^']+)'", line)
+        if found:
+            entry = found.group(1)
+        found = re.search(r"Used (\d+) registers", line)
+        if found and f"E{'d' if f64 else 'f'}EEv" in entry:
+            out.append(int(found.group(1)))
+    return out
 
 
 def main(argv=None) -> int:
@@ -118,6 +154,7 @@ def main(argv=None) -> int:
 
     wanted = [f"gridgen_{a}" for a in (argv or sys.argv[1:])] \
         or list(VARIANTS)
+    f64 = torch.float64
     if not torch.cuda.is_available():
         print("kernel_variants: no CUDA device is available",
               file=sys.stderr)
@@ -130,32 +167,34 @@ def main(argv=None) -> int:
     slabs = [(x0 * nyz, (x0 + 2) * nyz)
              for x0 in (0, counts[0] // 2, counts[0] - 2)]
     rows = torch.cat([torch.arange(a, b, device="cuda") for a, b in slabs])
-    atoms = {gt: receptor_atoms(gt, rec_crd, rec.charges, rec.sigmas,
-                                rec.epsilons, device="cuda")
-             for gt in cs.GRID_TYPES}
     modules = {"gridgen_values": cuda_gridgen,
                "gridgen_derivs": cuda_gridgen_derivs}
     for name in wanted:
-        module = modules[name]
-        if name == "gridgen_values":
+        module = modules[library(name)]
+        dtype = f64 if name.endswith("_f64") else torch.float32
+        atoms = {gt: receptor_atoms(gt, rec_crd, rec.charges, rec.sigmas,
+                                    rec.epsilons, dtype=dtype,
+                                    device="cuda")
+                 for gt in cs.GRID_TYPES}
+        if library(name) == "gridgen_values":
             refs = {gt: module.gridgen_values_plain(
                 atoms[gt], counts, spacing, origin, gt, cs.GRID_CAP)
                 for gt in cs.GRID_TYPES}
         else:
             refs = {gt: torch.cat([module.gridgen_derivs_plain(
-                atoms[gt].double(), counts, spacing, origin, gt, start=a,
+                atoms[gt].to(f64), counts, spacing, origin, gt, start=a,
                 stop=b) for a, b in slabs]) for gt in cs.GRID_TYPES}
         for label, so, log in _build_all(name):
             # the wrapper calls whatever library its module's _library gives
             lib = module._declare(ctypes.CDLL(str(so)))
             module._library = lambda lib=lib: lib
             line = {"kernel": name, "variant": label,
-                    "registers": _registers(log),
+                    "registers": _registers(log, dtype == f64),
                     "spill_bytes": sum(int(b) for b in re.findall(
                         r"(\d+) bytes spill", log)),
                     "ms": {}, "rel_err": {}, "shape": {}}
             for gt in cs.GRID_TYPES:
-                if name == "gridgen_values":
+                if library(name) == "gridgen_values":
                     args = (atoms[gt], counts, spacing, origin, gt,
                             cs.GRID_CAP)
                     got = module.gridgen_values(*args)
@@ -169,7 +208,8 @@ def main(argv=None) -> int:
                     call = lambda: module.gridgen_derivs(*args)  # noqa: E731
                 line["rel_err"][gt] = err
                 line["ms"][gt] = cs._cuda_ms(torch, call, 3)
-                line["shape"][gt] = module.launch_shape(counts, gt)
+                line["shape"][gt] = module.launch_shape(counts, gt,
+                                                        dtype=dtype)
                 del got
             print(json.dumps(line), flush=True)
     print(smi, flush=True)

@@ -5,8 +5,13 @@ Replaces the Pallas kernel ``openmmgridforce_tpu/ops/pallas_gridgen.py``
 note gives the bound and the design.
 
 ``gridgen_values`` is the wrapper: a CPU tensor goes to the plain twin, a
-CUDA float32 tensor to the kernel, anything else raises. Its
-``launches`` attribute counts kernel launches.
+CUDA float32 or float64 tensor to the kernel's instantiation of that type,
+anything else raises. Its ``launches`` attribute counts kernel launches.
+
+``index_offset`` (i0, j0, k0) places the points of a call in a larger
+grid: point (i, j, k) of the result lies at origin + (i0 + i, j0 + j,
+k0 + k) * spacing, so a slab of a grid is computed from the global index,
+exactly as the whole grid computes it.
 """
 
 from __future__ import annotations
@@ -22,21 +27,27 @@ from .radial import GRID_TYPE_CODES
 _PAIR_BLOCK = 1 << 24   # points x atoms per chunk of the plain twin
 
 
-def grid_point_positions(counts, spacing, origin, flat_index):
-    """Positions [..., 3] of grid points given flat (z-fastest) indices,
-    formed as the kernel forms them: origin + index * spacing in the dtype
-    of ``spacing``."""
+def grid_point_positions(counts, spacing, origin, flat_index,
+                         index_offset=(0, 0, 0)):
+    """Positions [..., 3] of grid points given flat (z-fastest) indices
+    into ``counts``, formed as the kernel forms them: origin + (index +
+    index_offset) * spacing in the dtype of ``spacing``."""
     _, ny, nz = counts
     nyz = ny * nz
     i = flat_index // nyz
     rem = flat_index - i * nyz
     j = rem // nz
     k = rem - j * nz
-    return origin + torch.stack([i, j, k], dim=-1) * spacing
+    ijk = torch.stack([i, j, k], dim=-1)
+    if any(index_offset):
+        ijk = ijk + torch.as_tensor(index_offset, dtype=ijk.dtype,
+                                    device=ijk.device)
+    return origin + ijk * spacing
 
 
 def gridgen_values_plain(atoms, counts, spacing, origin, grid_type: str,
-                         grid_cap: float, pair_block: int = _PAIR_BLOCK):
+                         grid_cap: float, pair_block: int = _PAIR_BLOCK,
+                         index_offset=(0, 0, 0)):
     """Plain PyTorch version of the kernel, chunked over points.
 
     ``atoms``: [A, 4] rows (x, y, z, K). Returns [nx, ny, nz] in the dtype
@@ -54,8 +65,8 @@ def gridgen_values_plain(atoms, counts, spacing, origin, grid_type: str,
     for start in range(0, total, chunk):
         stop = min(start + chunk, total)
         idx = torch.arange(start, stop, dtype=torch.int64, device=device)
-        gx, gy, gz = grid_point_positions(counts, spacing, origin,
-                                          idx).unbind(-1)
+        gx, gy, gz = grid_point_positions(counts, spacing, origin, idx,
+                                          index_offset).unbind(-1)
         dx = gx[:, None] - ax
         dy = gy[:, None] - ay
         dz = gz[:, None] - az
@@ -76,13 +87,15 @@ def gridgen_values_plain(atoms, counts, spacing, origin, grid_type: str,
 
 def _declare(lib):
     """Declares the C entry points of the kernel's shared library."""
-    fn = lib.gridgen_values_launch
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-                   + [ctypes.c_int] * 3 + [ctypes.c_float] * 7
-                   + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    for name, real in (("gridgen_values_launch", ctypes.c_float),
+                       ("gridgen_values_launch_f64", ctypes.c_double)):
+        fn = getattr(lib, name)
+        fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+                       + [ctypes.c_int] * 6 + [real] * 7
+                       + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
     shape = lib.gridgen_values_launch_shape
-    shape.argtypes = [ctypes.c_int] * 5 + [
+    shape.argtypes = [ctypes.c_int] * 6 + [
         ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_int),
         ctypes.POINTER(ctypes.c_int)]
     shape.restype = ctypes.c_int
@@ -99,12 +112,14 @@ def _library():
     return _declare(cuda_build.load("gridgen_values"))
 
 
-def _launch_shape(lib, name: str, counts, grid_type: str, device) -> dict:
+def _launch_shape(lib, name: str, counts, grid_type: str, device,
+                  dtype) -> dict:
     blocks = ctypes.c_longlong()
     threads, per_sm = ctypes.c_int(), ctypes.c_int()
     err = getattr(lib, name + "_launch_shape")(
-        *(int(c) for c in counts), GRID_TYPE_CODES[grid_type], int(device),
-        ctypes.byref(blocks), ctypes.byref(threads), ctypes.byref(per_sm))
+        *(int(c) for c in counts), GRID_TYPE_CODES[grid_type],
+        int(dtype == torch.float64), int(device), ctypes.byref(blocks),
+        ctypes.byref(threads), ctypes.byref(per_sm))
     if err:
         raise RuntimeError(
             f"{name}_launch_shape failed: "
@@ -113,46 +128,60 @@ def _launch_shape(lib, name: str, counts, grid_type: str, device) -> dict:
             "blocks_per_sm": per_sm.value}
 
 
-def launch_shape(counts, grid_type: str, device=0) -> dict:
-    """How the kernel is launched for a grid of ``counts`` points: blocks,
-    threads per block, and the blocks one SM holds at a time (asked of the
-    CUDA runtime). Builds the library at first use; needs the card."""
+def launch_shape(counts, grid_type: str, device=0,
+                 dtype=torch.float32) -> dict:
+    """How the kernel's ``dtype`` instantiation is launched for a grid of
+    ``counts`` points: blocks, threads per block, and the blocks one SM
+    holds at a time (asked of the CUDA runtime). Builds the library at
+    first use; needs the card."""
     return _launch_shape(_library(), "gridgen_values", counts, grid_type,
-                         device)
+                         device, dtype)
+
+
+def _check_cuda_atoms(atoms, counts):
+    """Raises on what the kernels do not take; returns the launch entry
+    point's suffix for the atoms' dtype."""
+    if atoms.device.type != "cuda":
+        raise ValueError(f"no gridgen kernel for device {atoms.device}")
+    if atoms.dtype not in (torch.float32, torch.float64):
+        raise ValueError(
+            f"the CUDA gridgen kernels take float32 or float64, got "
+            f"{atoms.dtype}")
+    if not atoms.is_contiguous() or atoms.data_ptr() % 16:
+        raise ValueError("atoms must be contiguous and 16-byte aligned")
+    if min(counts) < 1 or atoms.shape[0] > 2**31 - 1:
+        raise ValueError(f"bad grid counts {counts} or atom count")
+    return "_f64" if atoms.dtype == torch.float64 else ""
 
 
 def gridgen_values(atoms, counts, spacing, origin, grid_type: str,
-                   grid_cap: float):
-    """Capped field values [nx, ny, nz] of the atoms [A, 4] (x, y, z, K).
+                   grid_cap: float, index_offset=(0, 0, 0)):
+    """Capped field values [nx, ny, nz] of the atoms [A, 4] (x, y, z, K),
+    at points ``index_offset`` + (i, j, k) of the grid that ``origin`` and
+    ``spacing`` describe.
 
-    CPU tensors take the plain twin; CUDA float32 tensors take the kernel.
+    CPU tensors take the plain twin; CUDA float32 and float64 tensors take
+    the kernel's instantiation of their type.
     """
     if atoms.ndim != 2 or atoms.shape[1] != 4:
         raise ValueError(f"atoms must be [A, 4], got {tuple(atoms.shape)}")
     if grid_type not in GRID_TYPE_CODES:
         raise ValueError(f"unknown grid type {grid_type!r}")
+    index_offset = tuple(int(o) for o in index_offset)
     if atoms.device.type == "cpu":
         return gridgen_values_plain(atoms, counts, spacing, origin,
-                                    grid_type, grid_cap)
-    if atoms.device.type != "cuda":
-        raise ValueError(f"no gridgen kernel for device {atoms.device}")
-    if atoms.dtype != torch.float32:
-        raise NotImplementedError(
-            f"the CUDA gridgen kernel takes float32, got {atoms.dtype} "
-            "(float64 on CUDA: ROADMAP, Queue A)")
-    if not atoms.is_contiguous() or atoms.data_ptr() % 16:
-        raise ValueError("atoms must be contiguous and 16-byte aligned")
+                                    grid_type, grid_cap,
+                                    index_offset=index_offset)
     counts = tuple(int(c) for c in counts)
-    if min(counts) < 1 or atoms.shape[0] > 2**31 - 1:
-        raise ValueError(f"bad grid counts {counts} or atom count")
+    suffix = _check_cuda_atoms(atoms, counts)
     lib = _library()
-    out = torch.empty(counts, dtype=torch.float32, device=atoms.device)
+    out = torch.empty(counts, dtype=atoms.dtype, device=atoms.device)
     stream = torch.cuda.current_stream(atoms.device).cuda_stream
-    err = lib.gridgen_values_launch(
+    err = getattr(lib, "gridgen_values_launch" + suffix)(
         atoms.data_ptr(), atoms.shape[0], out.data_ptr(), *counts,
-        *(float(o) for o in origin), *(float(s) for s in spacing),
-        float(grid_cap), GRID_TYPE_CODES[grid_type], atoms.device.index,
-        stream)
+        *index_offset, *(float(o) for o in origin),
+        *(float(s) for s in spacing), float(grid_cap),
+        GRID_TYPE_CODES[grid_type], atoms.device.index, stream)
     if err:
         raise RuntimeError("gridgen_values kernel launch failed: "
                            + lib.gridgen_values_error_string(err).decode())

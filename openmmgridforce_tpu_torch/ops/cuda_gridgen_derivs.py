@@ -9,8 +9,10 @@ with r^2 clamped at 4e-4 nm^2; the tanh cap, the inverse-power chain rule
 and the cell-fractional scaling follow in ``ops/gridgen.py``.
 
 ``gridgen_derivs`` is the wrapper: a CPU tensor goes to the plain twin, a
-CUDA float32 tensor to the kernel, anything else raises. Its ``launches``
-attribute counts kernel launches.
+CUDA float32 or float64 tensor to the kernel's instantiation of that type,
+anything else raises. Its ``launches`` attribute counts kernel launches.
+``index_offset`` places the points of a call in a larger grid, as for
+``cuda_gridgen.gridgen_values``.
 """
 
 from __future__ import annotations
@@ -20,7 +22,8 @@ import functools
 
 import torch
 
-from .cuda_gridgen import _launch_shape, grid_point_positions
+from .cuda_gridgen import (_check_cuda_atoms, _launch_shape,
+                           grid_point_positions)
 from .derivatives27 import N_DERIVS
 from .radial import FIELD_POWERS, GRID_TYPE_CODES
 
@@ -98,7 +101,8 @@ def pair_derivative_terms(dx, dy, dz, K, grid_type: str):
 
 def gridgen_derivs_plain(atoms, counts, spacing, origin, grid_type: str,
                          start: int = 0, stop: int | None = None,
-                         pair_block: int = _PAIR_BLOCK):
+                         pair_block: int = _PAIR_BLOCK,
+                         index_offset=(0, 0, 0)):
     """Plain PyTorch version of the kernel, chunked over points.
 
     ``atoms``: [A, 4] rows (x, y, z, K). Computes the points with flat
@@ -121,8 +125,8 @@ def gridgen_derivs_plain(atoms, counts, spacing, origin, grid_type: str,
     for lo in range(start, stop, chunk):
         hi = min(lo + chunk, stop)
         idx = torch.arange(lo, hi, dtype=torch.int64, device=device)
-        gx, gy, gz = grid_point_positions(counts, spacing, origin,
-                                          idx).unbind(-1)
+        gx, gy, gz = grid_point_positions(counts, spacing, origin, idx,
+                                          index_offset).unbind(-1)
         terms = pair_derivative_terms(gx[:, None] - ax, gy[:, None] - ay,
                                       gz[:, None] - az, K, grid_type)
         for s, t in enumerate(terms):
@@ -132,13 +136,15 @@ def gridgen_derivs_plain(atoms, counts, spacing, origin, grid_type: str,
 
 def _declare(lib):
     """Declares the C entry points of the kernel's shared library."""
-    fn = lib.gridgen_derivs_launch
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-                   + [ctypes.c_int] * 3 + [ctypes.c_float] * 6
-                   + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    for name, real in (("gridgen_derivs_launch", ctypes.c_float),
+                       ("gridgen_derivs_launch_f64", ctypes.c_double)):
+        fn = getattr(lib, name)
+        fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+                       + [ctypes.c_int] * 6 + [real] * 6
+                       + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
     shape = lib.gridgen_derivs_launch_shape
-    shape.argtypes = [ctypes.c_int] * 5 + [
+    shape.argtypes = [ctypes.c_int] * 6 + [
         ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_int),
         ctypes.POINTER(ctypes.c_int)]
     shape.restype = ctypes.c_int
@@ -155,19 +161,24 @@ def _library():
     return _declare(cuda_build.load("gridgen_derivs"))
 
 
-def launch_shape(counts, grid_type: str, device=0) -> dict:
-    """How the kernel is launched for a grid of ``counts`` points: blocks,
-    threads per block, and the blocks one SM holds at a time (asked of the
-    CUDA runtime). Builds the library at first use; needs the card."""
+def launch_shape(counts, grid_type: str, device=0,
+                 dtype=torch.float32) -> dict:
+    """How the kernel's ``dtype`` instantiation is launched for a grid of
+    ``counts`` points: blocks, threads per block, and the blocks one SM
+    holds at a time (asked of the CUDA runtime). Builds the library at
+    first use; needs the card."""
     return _launch_shape(_library(), "gridgen_derivs", counts, grid_type,
-                         device)
+                         device, dtype)
 
 
-def gridgen_derivs(atoms, counts, spacing, origin, grid_type: str):
+def gridgen_derivs(atoms, counts, spacing, origin, grid_type: str,
+                   index_offset=(0, 0, 0)):
     """Raw derivative sums [nx, ny, nz, 27] of the atoms [A, 4]
-    (x, y, z, K).
+    (x, y, z, K), at points ``index_offset`` + (i, j, k) of the grid that
+    ``origin`` and ``spacing`` describe.
 
-    CPU tensors take the plain twin; CUDA float32 tensors take the kernel.
+    CPU tensors take the plain twin; CUDA float32 and float64 tensors take
+    the kernel's instantiation of their type.
     """
     if atoms.ndim != 2 or atoms.shape[1] != 4:
         raise ValueError(f"atoms must be [A, 4], got {tuple(atoms.shape)}")
@@ -176,25 +187,21 @@ def gridgen_derivs(atoms, counts, spacing, origin, grid_type: str):
     counts = tuple(int(c) for c in counts)
     if min(counts) < 1 or atoms.shape[0] > 2**31 - 1:
         raise ValueError(f"bad grid counts {counts} or atom count")
+    index_offset = tuple(int(o) for o in index_offset)
     if atoms.device.type == "cpu":
-        return gridgen_derivs_plain(atoms, counts, spacing, origin,
-                                    grid_type).reshape(counts + (N_DERIVS,))
-    if atoms.device.type != "cuda":
-        raise ValueError(f"no gridgen kernel for device {atoms.device}")
-    if atoms.dtype != torch.float32:
-        raise NotImplementedError(
-            f"the CUDA gridgen kernel takes float32, got {atoms.dtype} "
-            "(float64 on CUDA: ROADMAP, Queue A)")
-    if not atoms.is_contiguous() or atoms.data_ptr() % 16:
-        raise ValueError("atoms must be contiguous and 16-byte aligned")
+        return gridgen_derivs_plain(
+            atoms, counts, spacing, origin, grid_type,
+            index_offset=index_offset).reshape(counts + (N_DERIVS,))
+    suffix = _check_cuda_atoms(atoms, counts)
     lib = _library()
-    out = torch.empty(counts + (N_DERIVS,), dtype=torch.float32,
+    out = torch.empty(counts + (N_DERIVS,), dtype=atoms.dtype,
                       device=atoms.device)
     stream = torch.cuda.current_stream(atoms.device).cuda_stream
-    err = lib.gridgen_derivs_launch(
+    err = getattr(lib, "gridgen_derivs_launch" + suffix)(
         atoms.data_ptr(), atoms.shape[0], out.data_ptr(), *counts,
-        *(float(o) for o in origin), *(float(s) for s in spacing),
-        GRID_TYPE_CODES[grid_type], atoms.device.index, stream)
+        *index_offset, *(float(o) for o in origin),
+        *(float(s) for s in spacing), GRID_TYPE_CODES[grid_type],
+        atoms.device.index, stream)
     if err:
         raise RuntimeError("gridgen_derivs kernel launch failed: "
                            + lib.gridgen_derivs_error_string(err).decode())

@@ -11,11 +11,17 @@ Two pipelines, in the JAX module's order of operations:
                 ``derivs``; it differs from the values-only path below
                 0.1 cap (the chain rule's passthrough) and in the clamp.
 
-The device decides the route. A CUDA float32 run goes through the
-hand-written kernels: ``ops/cuda_gridgen.py`` for values,
+The device decides the route. A CUDA run (float32 or float64) goes through
+the hand-written kernels: ``ops/cuda_gridgen.py`` for values,
 ``ops/cuda_gridgen_derivs.py`` for the raw derivative sums, followed by the
 per-point chain rules here. A CPU run takes the same route with each
 kernel's plain twin in the kernel's place.
+
+``generate_grid_to_tiled_file`` writes a grid too large for memory into an
+OMGTILE file: one launch per x-slab of tiles (split along y when a slab
+with derivatives would pass a memory budget), each slab's points formed
+from their global index, so the file holds exactly the grid that
+``generate_grid`` returns.
 
 Clamps: r >= 1e-6 nm for values, r^2 >= 4e-4 nm^2 for derivatives.
 """
@@ -32,7 +38,7 @@ from . import radial
 from .chain_rules import apply_invpower, apply_tanh_cap, tanh_cap_value
 from .cuda_gridgen import grid_point_positions, gridgen_values  # noqa: F401
 from .cuda_gridgen_derivs import gridgen_derivs
-from .derivatives27 import spacing_scale_factors
+from .derivatives27 import N_DERIVS, spacing_scale_factors
 
 _R_MIN_VALUES = 1e-6      # nm
 _POST_POINT_CHUNK = 1 << 18   # points per pass of the chain rules
@@ -65,6 +71,24 @@ def _postprocess_raw_derivs(raw, *, grid_cap, inv_power, inv_power_mode,
             V = apply_invpower(V, 1.0 / inv_power)
         out[lo:lo + point_chunk] = V * scale
     return out.reshape(raw.shape)
+
+
+def _store_transform(vals, inv_power, inv_power_mode):
+    """The values-only inverse-power storage transform, for any mode but
+    NONE (no 1e-10 dead zone on this side)."""
+    if inv_power != 0.0 and inv_power_mode != InvPowerMode.NONE:
+        sign = torch.where(vals >= 0.0, 1.0, -1.0).to(vals.dtype)
+        vals = sign * vals.abs() ** (1.0 / inv_power)
+    return vals
+
+
+def _check_dtype(dtype):
+    """Generation runs in float32 or float64 (the kernels' two
+    instantiations, and their twins); refused before the device is
+    touched."""
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"grid generation takes float32 or float64, got "
+                         f"{dtype}")
 
 
 def receptor_atoms(grid_type, positions, charges, sigmas, epsilons,
@@ -107,11 +131,8 @@ def generate_grid(counts,
     the grid carries ``derivs`` [nx, ny, nz, 27] in cell-fractional units
     and ``vals`` is their slot 0.
     """
+    _check_dtype(dtype)
     device = resolve_device(device)
-    if device.type == "cuda" and dtype != torch.float32:
-        raise NotImplementedError(
-            f"{dtype} grid generation on CUDA is not ported yet; the "
-            "kernels are float32 (ROADMAP: float64 on CUDA, Queue A)")
     counts = tuple(int(c) for c in counts)
     # the per-atom strength K carries the LJ convention, so one atom table
     # serves both conventions on either route
@@ -125,13 +146,9 @@ def generate_grid(counts,
             inv_power_mode=inv_power_mode, spacing=spacing)
         vals = derivs[..., 0]
     else:
-        vals = gridgen_values(atoms, counts, spacing, origin, grid_type,
-                              grid_cap)
-        if inv_power != 0.0 and inv_power_mode != InvPowerMode.NONE:
-            # values-only storage transform; no 1e-10 dead zone on this
-            # side
-            sign = torch.where(vals >= 0.0, 1.0, -1.0).to(dtype)
-            vals = sign * vals.abs() ** (1.0 / inv_power)
+        vals = _store_transform(
+            gridgen_values(atoms, counts, spacing, origin, grid_type,
+                           grid_cap), inv_power, inv_power_mode)
     return Grid(
         vals=vals,
         derivs=derivs,
@@ -171,3 +188,125 @@ def auto_scaling_factors(grid_type: str, charges, sigmas, epsilons,
     if grid_type == "lja":
         return np.sqrt(epsilons) * d ** 3
     raise ValueError(f"unknown grid type {grid_type!r}")
+
+
+# device bytes a slab with derivatives may take (raw sums and chain rules)
+SLAB_BUDGET_BYTES = 1 << 30
+
+
+def generate_grid_to_tiled_file(path,
+                                counts,
+                                spacing,
+                                origin,
+                                grid_type: str,
+                                receptor_positions,
+                                charges,
+                                sigmas,
+                                epsilons,
+                                *,
+                                tile_size: int = 32,
+                                compute_derivatives: bool = False,
+                                grid_cap: float = DEFAULT_GRID_CAP,
+                                inv_power: float = 0.0,
+                                inv_power_mode: InvPowerMode =
+                                InvPowerMode.NONE,
+                                dtype=torch.float32,
+                                progress=None,
+                                device=None,
+                                slab_budget_bytes: int =
+                                SLAB_BUDGET_BYTES) -> None:
+    """Generate a grid directly into an OMGTILE file.
+
+    The counterpart of the JAX package's function of the same name (and
+    of the reference's generateGridToTiledFile): the grid never exists
+    whole, in device or host memory. Each launch of the values kernel (or
+    of the derivative kernel and the chain rules) covers an x-slab of
+    tiles, all of y and z, at the index offset of its first point; with
+    derivatives a slab is cut along y into runs of tile rows that fit
+    ``slab_budget_bytes``. Slabs are copied into two pinned host buffers
+    in turn, so the next slab's kernel runs while the tiles of the last
+    are written, in the writer's order (x, then y, then z tiles). Values
+    are stored in float32 whatever ``dtype`` computes them.
+
+    ``progress``: optional callback(tiles_done, total_tiles).
+    """
+    from ..io.omgtile import TiledGridWriter, num_tiles
+
+    _check_dtype(dtype)
+    device = resolve_device(device)
+    counts = tuple(int(c) for c in counts)
+    nx, ny, nz = counts
+    ts = int(tile_size)
+    atoms = receptor_atoms(grid_type, receptor_positions, charges, sigmas,
+                           epsilons, "rmin", dtype, device)
+    ntx, nty, ntz = num_tiles(counts, ts)
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    per_point = itemsize * 2 * N_DERIVS if compute_derivatives else itemsize
+    rows = max(1, min(nty, slab_budget_bytes // (per_point * ts * ts * nz)))
+    slabs = [(tx, ty0, min(ty0 + rows, nty)) for tx in range(ntx)
+             for ty0 in range(0, nty, rows)]
+    cuda = device.type == "cuda"
+    if cuda:
+        largest = min(ts, nx) * min(rows * ts, ny) * nz * (
+            N_DERIVS if compute_derivatives else 1)
+        buffers = [torch.empty(largest, dtype=torch.float32,
+                               pin_memory=True) for _ in range(2)]
+
+    def compute(slab, n):
+        tx, ta, tb = slab
+        x0, y0 = tx * ts, ta * ts
+        shape = (min(x0 + ts, nx) - x0, min(tb * ts, ny) - y0, nz)
+        if compute_derivatives:
+            raw = gridgen_derivs(atoms, shape, spacing, origin, grid_type,
+                                 index_offset=(x0, y0, 0))
+            out = _postprocess_raw_derivs(
+                raw, grid_cap=grid_cap, inv_power=inv_power,
+                inv_power_mode=inv_power_mode, spacing=spacing)
+        else:
+            out = _store_transform(
+                gridgen_values(atoms, shape, spacing, origin, grid_type,
+                               grid_cap, index_offset=(x0, y0, 0)),
+                inv_power, inv_power_mode)
+        out = out.to(torch.float32)
+        if not cuda:
+            return out.numpy(), None
+        host = buffers[n % 2][:out.numel()].view(out.shape)
+        host.copy_(out, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return host.numpy(), done
+
+    total = ntx * nty * ntz
+    written = 0
+
+    def write(slab, arr):
+        nonlocal written
+        tx, ta, tb = slab
+        for ty in range(ta, tb):
+            y0 = (ty - ta) * ts
+            y1 = min(y0 + ts, arr.shape[1])
+            for tz in range(ntz):
+                tile = arr[:, y0:y1, tz * ts:min((tz + 1) * ts, nz)]
+                if compute_derivatives:
+                    writer.write_tile(tx, ty, tz, tile[..., 0],
+                                      np.moveaxis(tile, -1, 0))
+                else:
+                    writer.write_tile(tx, ty, tz, tile)
+                written += 1
+                if progress is not None:
+                    progress(written, total)
+
+    with TiledGridWriter(path, counts, spacing, origin, tile_size=ts,
+                         has_derivatives=compute_derivatives,
+                         inv_power=inv_power,
+                         inv_power_mode=int(inv_power_mode)) as writer:
+        pending = None
+        for n, slab in enumerate(slabs):
+            arr, done = compute(slab, n)
+            if pending is not None:
+                write(*pending)
+            if done is not None:
+                done.synchronize()
+            pending = (slab, arr)
+        if pending is not None:
+            write(*pending)

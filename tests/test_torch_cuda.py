@@ -41,17 +41,23 @@ def test_kernel_matches_plain_twin(cuda, grid_type):
 
 
 def test_cap_on_atom_and_dtype_rules(cuda):
+    """The cap exactly on an atom in both instantiations; float64 takes
+    the float64 kernel (also through generate_grid); other dtypes
+    raise."""
     on_atom = torch.tensor([[0.1, 0.1, 0.1, 1.0]], device=cuda)
-    got = cuda_gridgen.gridgen_values(on_atom, (3, 3, 3), (0.1,) * 3,
-                                      (0.0,) * 3, "ljr", 500.0)
-    assert float(got[1, 1, 1]) == 500.0
-    with pytest.raises(NotImplementedError, match="float64"):
-        cuda_gridgen.gridgen_values(on_atom.double(), (3, 3, 3), (0.1,) * 3,
+    for atoms in (on_atom, on_atom.double()):
+        got = cuda_gridgen.gridgen_values(atoms, (3, 3, 3), (0.1,) * 3,
+                                          (0.0,) * 3, "ljr", 500.0)
+        assert got.dtype == atoms.dtype and float(got[1, 1, 1]) == 500.0
+    with pytest.raises(ValueError, match="float32 or float64"):
+        cuda_gridgen.gridgen_values(on_atom.half(), (3, 3, 3), (0.1,) * 3,
                                     (0.0,) * 3, "ljr", 500.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        gridgen.generate_grid((3, 3, 3), (0.1,) * 3, (0.0,) * 3, "ljr",
+    before = cuda_gridgen.gridgen_values.launches
+    g = gridgen.generate_grid((3, 3, 3), (0.1,) * 3, (0.0,) * 3, "ljr",
                               np.array([[0.1] * 3]), [0.0], [0.3], [1.0],
                               dtype=torch.float64, device=cuda)
+    assert cuda_gridgen.gridgen_values.launches == before + 1
+    assert g.vals.dtype == torch.float64 and g.vals.is_cuda
 
 
 @pytest.mark.parametrize("n_atoms", chip_smoke.RAGGED_ATOMS)
@@ -156,11 +162,15 @@ def test_generate_grid_with_derivatives_launches_the_kernel(cuda,
     assert got.derivs.is_cuda and torch.equal(got.vals, got.derivs[..., 0])
     ref = gridgen.generate_grid(*args, device="cpu", **kw)
     assert _slot_err(got.derivs.cpu(), ref.derivs) < 5e-5
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        gridgen.generate_grid(*args, dtype=torch.float64, device=cuda, **kw)
-    with pytest.raises(NotImplementedError, match="float64"):
-        cuda_gridgen_derivs.gridgen_derivs(
-            torch.zeros(3, 4, dtype=torch.float64, device=cuda), *args[:4])
+    # float64 runs the kernel's float64 instantiation, to 1e-10 of the
+    # host's float64 route
+    got = gridgen.generate_grid(*args, dtype=torch.float64, device=cuda,
+                                **kw)
+    ref = gridgen.generate_grid(*args, dtype=torch.float64, device="cpu",
+                                **kw)
+    assert cuda_gridgen_derivs.gridgen_derivs.launches == before[0] + 2
+    assert got.derivs.dtype == torch.float64
+    assert _slot_err(got.derivs.cpu(), ref.derivs) < 1e-10
 
 
 def test_constraints_on_the_card_match_the_host(cuda):
@@ -217,3 +227,114 @@ def test_pack_grids_fused_on_the_card(cuda):
     np.testing.assert_allclose(got.coeffs.cpu().numpy(),
                                ref.coeffs.cpu().numpy(), rtol=1e-6,
                                atol=1e-6 * float(ref.coeffs.abs().max()))
+
+
+@pytest.mark.parametrize("grid_type", ["charge", "ljr", "lja"])
+def test_float64_kernels_match_their_twins(cuda, grid_type):
+    """Both kernels' float64 instantiations against the float64 twins:
+    1e-10 of the largest value (K1) and of each slot's largest (K2)."""
+    atoms = gridgen.receptor_atoms(grid_type, *_receptor(54, 301),
+                                   dtype=torch.float64, device=cuda)
+    args = ((19, 21, 23), (0.1, 0.11, 0.09), (0.0, -0.2, 0.3), grid_type)
+    got = cuda_gridgen.gridgen_values(atoms, *args, 800.0)
+    ref = cuda_gridgen.gridgen_values_plain(atoms, *args, 800.0)
+    assert got.dtype == torch.float64
+    assert float((got - ref).abs().max() / ref.abs().max()) < 1e-10
+    got = cuda_gridgen_derivs.gridgen_derivs(atoms, *args)
+    ref = cuda_gridgen_derivs.gridgen_derivs_plain(atoms, *args)
+    assert got.dtype == torch.float64
+    assert _slot_err(got, ref) < 1e-10
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_index_offset_gives_the_slice_of_the_whole_grid(cuda, dtype):
+    """A launch at index offset (i0, j0, k0) computes exactly the same
+    slice of the whole grid, bit for bit, in both kernels."""
+    atoms = gridgen.receptor_atoms("lja", *_receptor(55, 200), dtype=dtype,
+                                   device=cuda)
+    geom = ((19, 21, 23), (0.1, 0.11, 0.09), (0.0, -0.2, 0.3))
+    whole = cuda_gridgen.gridgen_values(atoms, *geom, "lja", 800.0)
+    whole_d = cuda_gridgen_derivs.gridgen_derivs(atoms, *geom, "lja")
+    for off, shape in (((7, 0, 0), (4, 21, 23)), ((2, 9, 11), (3, 5, 6)),
+                       ((18, 20, 22), (1, 1, 1))):
+        sl = tuple(slice(o, o + n) for o, n in zip(off, shape))
+        part = cuda_gridgen.gridgen_values(atoms, shape, *geom[1:], "lja",
+                                           800.0, index_offset=off)
+        assert torch.equal(part, whole[sl])
+        part = cuda_gridgen_derivs.gridgen_derivs(atoms, shape, *geom[1:],
+                                                  "lja", index_offset=off)
+        assert torch.equal(part, whole_d[sl])
+
+
+@pytest.mark.parametrize("derivatives", [False, True])
+def test_tiled_file_equals_in_memory_generation(cuda, tmp_path,
+                                                derivatives):
+    """generate_grid_to_tiled_file on the card (slabs of tiles of 8, the
+    derivative slabs cut along y by a small budget) holds exactly the grid
+    that generate_grid returns."""
+    from openmmgridforce_tpu_torch.io import TiledGridReader
+
+    args = ((19, 21, 23), (0.1, 0.11, 0.09), (0.0, -0.2, 0.3), "ljr",
+            *_receptor(56, 120))
+    path = str(tmp_path / "g.tiled")
+    before = (cuda_gridgen.gridgen_values.launches,
+              cuda_gridgen_derivs.gridgen_derivs.launches)
+    gridgen.generate_grid_to_tiled_file(
+        path, *args, tile_size=8, compute_derivatives=derivatives,
+        grid_cap=800.0, device=cuda, slab_budget_bytes=1 << 20)
+    after = (cuda_gridgen.gridgen_values.launches,
+             cuda_gridgen_derivs.gridgen_derivs.launches)
+    assert after[int(derivatives)] > before[int(derivatives)]
+    mem = gridgen.generate_grid(*args, compute_derivatives=derivatives,
+                                grid_cap=800.0, device=cuda)
+    with TiledGridReader(path) as r:
+        vals, derivs = r.read_full()
+    np.testing.assert_array_equal(vals, mem.vals.cpu().numpy())
+    if derivatives:
+        np.testing.assert_array_equal(
+            derivs, np.moveaxis(mem.derivs.cpu().numpy(), -1, 0))
+
+
+def test_streamed_batch_md_on_the_card_matches_the_host(cuda, tmp_path):
+    """StreamedBatchMD in float64 on the card against the host: scattered
+    replicas, friction 0, the same trajectories within rounding and the
+    same region bookkeeping."""
+    from openmmgridforce_tpu_torch import convert
+    from openmmgridforce_tpu_torch.grid import InterpolationMethod
+    from openmmgridforce_tpu_torch.io import write_grid_tiled
+    from openmmgridforce_tpu_torch.io.streaming import StreamedGridEvaluator
+    from openmmgridforce_tpu_torch.mm import StreamedBatchMD, system
+
+    lig, x, _, _ = chip_smoke.synthetic_complex(3, n_ligand=10,
+                                                n_receptor=10)
+    x = x - x.min(0)
+    rec = _receptor(57, 15)
+    paths, scals = [], []
+    for gt in ("charge", "lja"):
+        g = gridgen.generate_grid((33, 33, 33), (0.125,) * 3, (-1.0,) * 3,
+                                  gt, *rec, grid_cap=400.0,
+                                  dtype=torch.float64, device="cpu")
+        paths.append(str(tmp_path / f"{gt}.tiled"))
+        write_grid_tiled(paths[-1], g, tile_size=8)
+        scals.append(gridgen.auto_scaling_factors(gt, lig.charges,
+                                                  lig.sigmas, lig.epsilons))
+    offsets = np.array([[0.0, 0.0, 0.0], [1.3, 0.1, 0.2], [0.1, 1.4, 0.1],
+                        [5.0, 5.0, 5.0]])
+    pos = np.stack([x + off for off in offsets])
+    out, books = {}, {}
+    for dev in ("cpu", cuda):
+        evs = [StreamedGridEvaluator(p, InterpolationMethod.BSPLINE,
+                                     region_shape=(20, 20, 20),
+                                     dtype=torch.float64, device=dev)
+               for p in paths]
+        md = StreamedBatchMD(evs, scals, system.system_from_amber(
+            lig, dtype=torch.float64, device=dev), dt=0.0005, friction=0.0,
+            refresh_steps=10)
+        states = convert.states_from_arrays(pos, np.zeros_like(pos),
+                                            seed=0, device=dev)
+        states = md.run(states, 0.0, 30)
+        out[str(dev)[:4]] = states.positions.cpu().numpy()
+        books[str(dev)[:4]] = convert.stream_set_bookkeeping(md.sets[0])
+    np.testing.assert_allclose(out["cuda"], out["cpu"], rtol=0, atol=1e-9)
+    for key, value in books["cpu"].items():
+        np.testing.assert_array_equal(books["cuda"][key], value)

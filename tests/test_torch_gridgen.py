@@ -116,11 +116,20 @@ def test_values_at_points_and_positions_match_jax():
 
 
 def test_unported_options_raise():
-    """float64 on the card is still to come, with or without derivatives;
-    the refusal comes before anything touches the device."""
+    """Float64 now runs on the card (the kernels' float64
+    instantiations); a dtype the kernels have no instantiation for is
+    refused, with or without derivatives, in memory or tiled, before
+    anything touches the device."""
     pos, q, sig, eps = _receptor(5)
-    for derivs in (False, True):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            gridgen.generate_grid(COUNTS, SPACING, ORIGIN, "ljr", pos, q,
-                                  sig, eps, compute_derivatives=derivs,
-                                  dtype=torch.float64, device="cuda:0")
+    for dtype in (torch.float16, torch.bfloat16):
+        for derivs in (False, True):
+            with pytest.raises(ValueError, match="float32 or float64"):
+                gridgen.generate_grid(COUNTS, SPACING, ORIGIN, "ljr", pos,
+                                      q, sig, eps,
+                                      compute_derivatives=derivs,
+                                      dtype=dtype, device="cuda:0")
+            with pytest.raises(ValueError, match="float32 or float64"):
+                gridgen.generate_grid_to_tiled_file(
+                    "never-written.tiled", COUNTS, SPACING, ORIGIN, "ljr",
+                    pos, q, sig, eps, compute_derivatives=derivs,
+                    dtype=dtype, device="cuda:0")

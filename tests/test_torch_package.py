@@ -16,6 +16,7 @@ import openmmgridforce_tpu_torch as port
 from openmmgridforce_tpu_torch import convert
 from openmmgridforce_tpu_torch.mm import system
 from openmmgridforce_tpu_torch import cuda_build
+from openmmgridforce_tpu_torch.io import streaming
 from openmmgridforce_tpu_torch.ops import (cuda_gridgen, cuda_gridgen_derivs,
                                            gridgen, packed, pairwise, radial)
 from openmmgridforce_tpu_torch.parallel import replicas
@@ -26,6 +27,7 @@ torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "openmmgridforce_tpu_torch"
 EXAMPLE = ROOT / "examples" / "bpmf_sampler_torch.py"
+DOCKING = ROOT / "examples" / "docking_screen_torch.py"
 
 
 def _module_names():
@@ -41,14 +43,17 @@ def test_port_imports_no_jax():
     for new in ("ops.cuda_gridgen", "ops.cuda_gridgen_derivs",
                 "ops.derivatives27", "ops.interpolate", "mm.constraints",
                 "sampling", "sampling.bat", "sampling.sampler", "utils",
-                "utils.checkpoint", "utils.observe"):
+                "utils.checkpoint", "utils.observe", "io", "io.omgtile",
+                "io.native", "io.v3", "io.gridio", "io.streaming",
+                "ops.fd_derivs", "mm.streamed_md"):
         assert "openmmgridforce_tpu_torch." + new in mods
     code = ("import importlib, importlib.util, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
-            "spec = importlib.util.spec_from_file_location('example', "
-            f"{str(EXAMPLE)!r})\n"
-            "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+            f"for path in {[str(EXAMPLE), str(DOCKING)]!r}:\n"
+            "    spec = importlib.util.spec_from_file_location('ex', path)\n"
+            "    spec.loader.exec_module("
+            "importlib.util.module_from_spec(spec))\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'openmmgridforce_tpu' or "
             "m.startswith('openmmgridforce_tpu.')]\n"
@@ -63,7 +68,7 @@ def test_port_imports_no_jax():
 def test_no_jax_in_sources():
     banned = re.compile(
         r"^\s*(from|import)\s+(jax|openmmgridforce_tpu)(\.|\s|$)", re.M)
-    for f in [*PKG.rglob("*.py"), ROOT / "chip_smoke.py", EXAMPLE]:
+    for f in [*PKG.rglob("*.py"), ROOT / "chip_smoke.py", EXAMPLE, DOCKING]:
         assert not banned.search(f.read_text()), f
 
 
@@ -126,6 +131,12 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         lambda: packed.pack_grids_fused([grid]),
         lambda: Sampler(cpu_system, [], x, SamplerConfig(n_states=2)),
         lambda: _example().main(["-i", "input.json", "--generate-grids"]),
+        lambda: gridgen.generate_grid_to_tiled_file(
+            "never-written.tiled", (3, 3, 3), (0.1,) * 3, (0.0,) * 3,
+            "charge", x, lig.charges, lig.sigmas, lig.epsilons),
+        lambda: port.grid.grid_from_numpy(z, (0.1,) * 3),
+        lambda: streaming.StreamedGridEvaluator("never-read.tiled"),
+        lambda: port.io.grid_from_file(str(ROOT / "never-read.grid")),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
