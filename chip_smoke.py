@@ -20,7 +20,14 @@ over the native tile cache against the whole grids on the card, and a
 kernels are built from the checkout and held against their plain PyTorch
 twins first: on ragged shapes down to one point and one atom, then at the
 paths' full shapes, where each is timed beside its bound, its launch shape
-and the instruction counts of its atom loop. Every
+and the instruction counts of its atom loop. Every MD segment runs as
+replays of CUDA graphs of blocks of steps; each path also times (and
+profiles) the same segment as eager launches, and segment_graph_check
+holds the two trajectories against each other under the same explicit
+noise (the constrained ladder with both device-side stops of the
+constraint solver, and a failed capture must raise). twofloat_check and
+semantics_check run the double-float32 tier and the alternate kernel
+semantics on the card against float64 on the host. Every
 phase prints one JSON line; the last line is {"ok": true, "device": {...}}.
 Any failed gate raises and the script exits non-zero. Without a CUDA device
 it exits non-zero and prints no result.
@@ -34,6 +41,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import faulthandler
 import json
 import os
 import re
@@ -153,7 +161,23 @@ STREAM_DRAIN_K = 1000.0
 # the later steps cost the most (PERF.md)
 STREAM_STEPS = 400
 STREAM_STEPS_REFERENCE = 1000
-STREAM_PROFILED_STEPS = 5
+STREAM_PROFILED_STEPS = 8
+# recorded segments (CUDA graphs of blocks of steps) against the same
+# segment run as eager launches: the eager rate is timed over a window of
+# EAGER_STEPS; segment_graph_check holds graph and eager trajectories under
+# the same explicit noise to GRAPH_GATE (float32, nm and nm/ps)
+EAGER_STEPS = 100
+GRAPH_CHECK_STEPS = 50
+GRAPH_CHECK_CONSTRAINED_STEPS = 20
+GRAPH_CHECK_STREAM_STEPS = 20
+GRAPH_GATE = 1e-6
+# bpmf_path: MD segments timed for each way the recorded constraint
+# solver stops on the device, and eagerly
+BPMF_CANDIDATE_SEGMENTS = 2
+# semantics_check / twofloat_check: the accuracy tier on the card
+TWOFLOAT_N = 1 << 20
+COMPENSATED_GATE = 2e-6      # tests/test_compensated.py's rtol
+N_COMPENSATED_POSES = 256
 
 # element -> (mass amu, sigma nm, epsilon kJ/mol, valence)
 _ELEMENTS = {"C": (12.011, 0.34, 0.36, 4), "N": (14.007, 0.325, 0.71, 3),
@@ -787,7 +811,8 @@ def _run_path(torch, phase, seed, lig, lig_crd, rec, rec_crd, counts,
     binding, Hermite-row binding or None, states, launches of the path's
     kernel)."""
     from openmmgridforce_tpu_torch.grid import InterpolationMethod
-    from openmmgridforce_tpu_torch.mm import (GridBinding, make_md_runner,
+    from openmmgridforce_tpu_torch.mm import (GridBinding, graphs,
+                                              make_md_runner,
                                               system_from_amber)
     from openmmgridforce_tpu_torch.ops import gridgen
     from openmmgridforce_tpu_torch.ops.packed import (
@@ -850,6 +875,15 @@ def _run_path(torch, phase, seed, lig, lig_crd, rec, rec_crd, counts,
     t_seg = time.perf_counter() - t0
     launches = {"gridgen_values": values_kernel.launches,
                 "gridgen_derivs": derivs_kernel.launches}
+    # the same segment as eager launches, over a window from the final
+    # states (the window's states are dropped)
+    window = make_md_runner(EAGER_STEPS, dt=0.001, friction=5.0,
+                            device=device)
+    with graphs.eager():
+        t0 = time.perf_counter()
+        window(states, system, [binding], temps)
+        _sync(torch, device)
+        t_eager = time.perf_counter() - t0
 
     finite = bool(torch.isfinite(states.positions).all()
                   and torch.isfinite(states.velocities).all())
@@ -861,9 +895,13 @@ def _run_path(torch, phase, seed, lig, lig_crd, rec, rec_crd, counts,
           "launches": launches,
           "generate_s": t_gen, "pack_s": t_pack,
           "fused_table_shape": list(multi.coeffs.shape), **extra,
+          "segment": "CUDA graph replays, blocks of 4 steps",
           "segment_steps": n_steps, "segment_s": t_seg,
           "steps_per_s": n_steps / t_seg,
           "replica_steps_per_s": n_steps * n_replicas / t_seg,
+          "eager_window_steps": EAGER_STEPS,
+          "eager_steps_per_s": EAGER_STEPS / t_eager,
+          "graph_over_eager": (n_steps / t_seg) / (EAGER_STEPS / t_eager),
           "finite": finite, "median_T": float(t_rep.median()),
           "max_T": float(t_rep.max()),
           "replicas_above_600K": int((t_rep > 600.0).sum())})
@@ -1010,31 +1048,102 @@ def _profile(torch, fn, host_ops=True):
     return wall_us, busy_us, n_kernels, by_name
 
 
+def _window_profile(torch, fn, n_steps):
+    """Per-step figures of a profiled window (``fn`` ends in a
+    synchronise)."""
+    fn()                                                  # warm-up
+    wall_us, busy_us, n_kernels, by_name = _profile(torch, fn)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return {"profiled_wall_ms_per_step": wall_us / n_steps / 1e3,
+            "device_ms_per_step": (busy_us / n_steps / 1e3
+                                   if n_kernels else "not measured"),
+            "device_busy_share": (busy_us / wall_us if n_kernels
+                                  else "not measured"),
+            "device_ops_per_step": n_kernels / n_steps,
+            "top_device_ms_per_step": {name[:80]: us / n_steps / 1e3
+                                       for name, us in top}}
+
+
 def phase_step_profile(torch, system, binding, states, n_steps=20,
                        phase="step_profile"):
-    """Where an eager MD step's time goes: torch.profiler over a short
-    window of a path's runner, kernels summed by name."""
-    from openmmgridforce_tpu_torch.mm import make_md_runner
+    """Where an MD step's time goes, as graph replays and as eager
+    launches: torch.profiler over a short window of a path's runner,
+    kernels summed by name."""
+    from openmmgridforce_tpu_torch.mm import graphs, make_md_runner
 
     run = make_md_runner(n_steps, dt=0.001, friction=5.0, device="cuda")
     temps = torch.full((states.positions.shape[0],), 300.0, device="cuda")
-    run(states, system, [binding], temps)                 # warm-up
-    torch.cuda.synchronize()
 
     def window():
         run(states, system, [binding], temps)
         torch.cuda.synchronize()
 
-    wall_us, busy_us, n_kernels, by_name = _profile(torch, window)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    emit({"phase": phase, "steps": n_steps,
-          "profiled_wall_ms_per_step": wall_us / n_steps / 1e3,
-          "device_ms_per_step": (busy_us / n_steps / 1e3
-                                 if n_kernels else "not measured"),
-          "device_busy_share": busy_us / wall_us if n_kernels else None,
-          "device_ops_per_step": n_kernels / n_steps,
-          "top_device_ms_per_step": {name[:80]: us / n_steps / 1e3
-                                     for name, us in top}})
+    graph = _window_profile(torch, window, n_steps)
+    with graphs.eager():
+        eager = _window_profile(torch, window, n_steps)
+    emit({"phase": phase, "steps": n_steps, "graph": graph, "eager": eager})
+
+
+def _max_delta(torch, a, b):
+    return (float((a.positions - b.positions).abs().max()),
+            float((a.velocities - b.velocities).abs().max()))
+
+
+def phase_segment_graph_check(torch, path, system, binding, states, n_steps,
+                              dt, temperatures, seed=0):
+    """The recorded segment against the same segment as eager launches,
+    from the same states under the same explicit noise: max |dx| and
+    max |dv|, gated at GRAPH_GATE. Returns (dx, dv)."""
+    from openmmgridforce_tpu_torch.mm import MDState, graphs, make_md_runner
+
+    x = states.positions
+    gen = torch.Generator(device=x.device)
+    gen.manual_seed(seed)
+    noise = torch.randn((n_steps,) + tuple(x.shape), generator=gen,
+                        dtype=x.dtype, device=x.device)
+    run = make_md_runner(n_steps, dt=dt, friction=5.0, device=x.device)
+    start = MDState(x.clone(), states.velocities.clone(), None)
+    graph = run(start, system, [binding], temperatures, noise=noise)
+    with graphs.eager():
+        eager = run(start, system, [binding], temperatures, noise=noise)
+    torch.cuda.synchronize()
+    dx, dv = _max_delta(torch, graph, eager)
+    stop = (system.constraints.graph_stop if system.constraints is not None
+            else None)
+    emit({"phase": "segment_graph_check", "path": path,
+          "replicas": int(x.shape[0]), "steps": n_steps,
+          "constraint_stop": stop, "max_abs_dx_nm": dx,
+          "max_abs_dv_nm_per_ps": dv, "bitwise_equal": dx == 0 and dv == 0,
+          "gate": GRAPH_GATE})
+    check(torch.isfinite(graph.positions).all(), f"{path}: non-finite graph "
+          "segment")
+    check(dx <= GRAPH_GATE and dv <= GRAPH_GATE,
+          f"{path}: graph and eager segments differ by {dx} nm, {dv} nm/ps")
+    return dx, dv
+
+
+def phase_capture_failure():
+    """A step that synchronises with the host cannot be recorded: the
+    segment must raise (in a child process, which PyTorch may abort when
+    it destroys the failed graph)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    code = ("import torch\n"
+            "from openmmgridforce_tpu_torch.mm import graphs\n"
+            "x = torch.ones(3, device='cuda')\n"
+            "seg = graphs.Segment(lambda c, n: (c[0] * float(c[0].sum()),),"
+            " (x,))\n"
+            "try:\n"
+            "    seg.run((x,), 8)\n"
+            "except Exception as e:\n"
+            "    print('raised', type(e).__name__, flush=True)\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300, cwd=root,
+                          env={**os.environ, "PYTHONPATH": root})
+    raised = proc.stdout.split()[1] if "raised" in proc.stdout else None
+    emit({"phase": "segment_graph_check", "path": "capture_failure",
+          "raised": raised, "child_exit": proc.returncode})
+    check(raised is not None, "a failed capture did not raise: "
+          + (proc.stdout + proc.stderr)[-400:])
 
 
 def phase_bpmf_path(torch, seed, lig, lig_crd, rec, rec_crd, counts,
@@ -1179,7 +1288,246 @@ def phase_bpmf_path(torch, seed, lig, lig_crd, rec, rec_crd, counts,
           f"bpmf_path: a rung reached {float(t_inst.max())} K")
     check(sampler.n_exchange_accepted >= 1, "bpmf_path: no exchange "
           f"accepted in {sampler.n_exchange_attempted}")
+    if torch.device(device).type == "cuda":
+        phase_bpmf_segments(torch, sampler, nstep_md)
     return launches["gridgen_values"]
+
+
+def phase_bpmf_segments(torch, sampler, nstep_md):
+    """The sampler's MD segment timed for each way the recorded constraint
+    solver stops on the device ("while": a conditional WHILE node per
+    block of sweeps; "masked": every sweep up to the cap, masked) and as
+    eager launches (per-block graphs of sweeps with a host check), each
+    with its sweep counts, the eager one profiled too; then the
+    constrained ladder through segment_graph_check with both stops."""
+    import contextlib
+
+    from openmmgridforce_tpu_torch.mm import graphs
+    from openmmgridforce_tpu_torch.mm.constraints import (apply_rattle,
+                                                          apply_shake)
+
+    system = sampler.system
+    cs = system.constraints
+    n_states = sampler.states.positions.shape[0]
+    out = {}
+    for mode in ("while", "masked", "eager"):
+        # the sampler's own system for the default stop: its recording is
+        # the one the profiled trial traced
+        sampler.system = (system if mode in ("eager", cs.graph_stop) else
+                          dataclasses.replace(system, constraints=(
+                              dataclasses.replace(cs, graph_stop=mode))))
+        ctx = graphs.eager() if mode == "eager" else contextlib.nullcontext()
+        with ctx:
+            sampler.run_md(nstep_md)          # records the segment, untimed
+            torch.cuda.synchronize()
+            apply_shake.stats.reset()
+            apply_rattle.stats.reset()
+            t0 = time.perf_counter()
+            for _ in range(BPMF_CANDIDATE_SEGMENTS):
+                sampler.run_md(nstep_md)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            sweeps = {"shake": apply_shake.stats.summary(),
+                      "rattle": apply_rattle.stats.summary()}
+            out[mode] = {
+                "replica_steps_per_s": (BPMF_CANDIDATE_SEGMENTS * nstep_md
+                                        * n_states / seconds),
+                "sweeps_per_call": sweeps}
+            if mode != "eager":
+                # the recorded segments' figures are the profiled trial's:
+                # profiling another recording with WHILE nodes has ended
+                # the process with a segmentation fault (PERF.md)
+                continue
+
+            def segment():
+                sampler.run_md(nstep_md)
+                torch.cuda.synchronize()
+
+            wall_us, busy_us, n_ops, _ = _profile(torch, segment,
+                                                  host_ops=False)
+        out[mode].update({
+            "device_ops_per_step": n_ops / nstep_md,
+            "device_ms_per_step": (busy_us / nstep_md / 1e3
+                                   if n_ops else "not measured"),
+            "device_busy_share": (busy_us / wall_us if n_ops
+                                  else "not measured")})
+    emit({"phase": "bpmf_segments", "steps": nstep_md,
+          "segments_timed": BPMF_CANDIDATE_SEGMENTS, "states": n_states,
+          "default_stop": cs.graph_stop, **out})
+    for stop in ("while", "masked"):
+        sys_s = dataclasses.replace(system, constraints=dataclasses.replace(
+            cs, graph_stop=stop))
+        phase_segment_graph_check(
+            torch, "bpmf_path", sys_s, sampler.grids[0], sampler.states,
+            GRAPH_CHECK_CONSTRAINED_STEPS, BPMF_DT, sampler._temps)
+    sampler.system = system
+
+
+# ----------------------------------------------------------------------
+# The accuracy tier and the alternate semantics on the card
+# ----------------------------------------------------------------------
+
+def _rel(got, want):
+    return float(((got - want).abs() / want.abs().clamp_min(1e-300)).max())
+
+
+def phase_twofloat_check(torch, seed):
+    """The error-free transforms and double-word operations of
+    ops/twofloat.py on the card, on TWOFLOAT_N values: 2Sum exact, 2Prod,
+    df_mul, df_add and df_sum within 1e-13 relative of float64 on the
+    host (a multiply and add contracted into an FMA would show here)."""
+    from openmmgridforce_tpu_torch.ops import twofloat as tf
+
+    rng = np.random.default_rng(seed + 7)
+    n = TWOFLOAT_N
+
+    def pair(x64):
+        hi, lo = tf.df_from_f64(x64)
+        return (torch.from_numpy(hi).cuda(), torch.from_numpy(lo).cuda())
+
+    def host(p):
+        return p[0].double().cpu() + p[1].double().cpu()
+
+    a = (rng.standard_normal(n) * 1e6).astype(np.float32)
+    b = (rng.standard_normal(n) * 1e-3).astype(np.float32)
+    a64 = torch.from_numpy(a).double()
+    b64 = torch.from_numpy(b).double()
+    s = tf.two_sum(torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda())
+    sum_exact = bool(torch.equal(host(s), a64 + b64))
+    p = tf.two_prod(torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda())
+    prod_rel = _rel(host(p), a64 * b64)
+    x64 = rng.standard_normal(n) * 1e5
+    y64 = rng.standard_normal(n)
+    x, y = pair(x64), pair(y64)
+    tx, ty = torch.from_numpy(x64), torch.from_numpy(y64)
+    mul_rel = _rel(host(tf.df_mul(x, y)), tx * ty)
+    add_rel = float(((host(tf.df_add(x, y)) - (tx + ty)).abs()
+                     / (tx.abs() + ty.abs())).max())
+    z64 = rng.standard_normal(n) * 1e6 + rng.standard_normal(n) * 1e-3
+    tot = tf.df_sum(pair(z64))
+    sum_rel = abs(float(host((tot[0][None], tot[1][None]))[0])
+                  - float(np.sum(z64))) / float(np.abs(z64).sum())
+    torch.cuda.synchronize()
+    emit({"phase": "twofloat_check", "values": n, "two_sum_exact": sum_exact,
+          "two_prod_max_rel": prod_rel, "df_mul_max_rel": mul_rel,
+          "df_add_max_rel": add_rel, "df_sum_rel": sum_rel, "gate": 1e-13})
+    check(sum_exact, "two_sum is not exact on the card")
+    for name, v in (("two_prod", prod_rel), ("df_mul", mul_rel),
+                    ("df_add", add_rel), ("df_sum", sum_rel)):
+        check(v <= 1e-13, f"{name} is {v} from float64 on the card")
+
+
+def phase_semantics_check(torch, seed, lig, lig_crd, rec, rec_crd, counts,
+                          origin):
+    """The alternate semantics and the compensated tier on the card against
+    float64 on the host. The common and reference semantics run float64 on
+    the card on a small grid with atoms inside, outside and on the faces
+    (1e-12 of the host's energies, forces 1e-10: the JAX tests'
+    tolerances); evaluate_compensated runs on the bench box's K1 grids
+    (float32, packed in float64 on the host) against the float64
+    evaluation of the same stored values on the host, at poses around the
+    ligand (COMPENSATED_GATE of max|E| per atom and of max|F|), with plain
+    float32 packs beside it."""
+    from openmmgridforce_tpu_torch import convert
+    from openmmgridforce_tpu_torch.grid import InterpolationMethod
+    from openmmgridforce_tpu_torch.ops import gridgen
+    from openmmgridforce_tpu_torch.ops.common_semantics import (
+        evaluate_grid_common)
+    from openmmgridforce_tpu_torch.ops.compensated import (
+        evaluate_compensated, pack_grid_compensated)
+    from openmmgridforce_tpu_torch.ops.interpolate import evaluate_grid
+    from openmmgridforce_tpu_torch.ops.packed import evaluate_packed, pack_grid
+    from openmmgridforce_tpu_torch.ops.reference_semantics import (
+        evaluate_grid_reference)
+
+    rng = np.random.default_rng(seed + 11)
+    small = (9, 8, 7)
+    spacing, org = (0.11, 0.09, 0.13), (0.2, -0.1, 0.05)
+    lo = np.asarray(org)
+    hi = lo + (np.asarray(small) - 1) * np.asarray(spacing)
+    pos = rng.uniform(lo - 0.05, hi + 0.05, (64, 3))
+    pos[0], pos[1] = hi, lo
+    scal = rng.uniform(-1.0, 1.0, len(pos))
+    scal[5] = 0.0
+    derivs = rng.standard_normal(small + (27,))
+    derivs[..., 0] = rng.standard_normal(small) + 2.5
+    cases = {}
+    for name, fn, method, inv in (
+            ("common_trilinear", evaluate_grid_common, 0, 0.0),
+            ("common_bspline_pow2", evaluate_grid_common, 1, 2.0),
+            ("reference_trilinear", evaluate_grid_reference, 0, 0.0),
+            ("reference_bspline_pow2", evaluate_grid_reference, 1, 2.0),
+            ("reference_tricubic_fd", evaluate_grid_reference, 2, 0.0),
+            ("reference_triquintic", evaluate_grid_reference, 3, 0.0)):
+        out = {}
+        for dev in ("cpu", "cuda"):
+            g = convert.grid_from_arrays(
+                derivs[..., 0], spacing, org, derivs=derivs,
+                interp_method=method, inv_power=inv,
+                inv_power_mode=2 if inv else 0, oob_k=10000.0,
+                dtype=torch.float64, device=dev)
+            out[dev] = fn(g, torch.as_tensor(pos, device=dev), scal)
+        e_ref = out["cpu"].per_atom_energy
+        f_ref = out["cpu"].forces
+        e_err = float((out["cuda"].per_atom_energy.cpu() - e_ref).abs()
+                      .max() / e_ref.abs().max())
+        f_err = float(((out["cuda"].forces.cpu() - f_ref).abs()
+                       - 1e-10 * f_ref.abs()).max())
+        cases[name] = {"E_rel": e_err, "F_excess_over_1e-10_rel": f_err}
+        check(e_err <= 1e-12, f"semantics {name}: energies {e_err} off")
+        check(f_err <= 1e-12, f"semantics {name}: forces {f_err} off")
+
+    # the compensated tier on the bench box, float32 K1 grids
+    poses = torch.as_tensor(
+        lig_crd[None] + rng.normal(0.0, 0.05, (N_COMPENSATED_POSES, 1, 3))
+        + rng.normal(0.0, 0.01, (N_COMPENSATED_POSES,) + lig_crd.shape),
+        dtype=torch.float64)
+    comp = {}
+    for gt in GRID_TYPES:
+        g32 = gridgen.generate_grid(
+            counts, (SPACING,) * 3, origin, gt, rec_crd, rec.charges,
+            rec.sigmas, rec.epsilons, grid_cap=GRID_CAP,
+            interp_method=InterpolationMethod.BSPLINE, device="cuda")
+        s = gridgen.auto_scaling_factors(gt, lig.charges, lig.sigmas,
+                                         lig.epsilons)
+        t0 = time.perf_counter()
+        cp = pack_grid_compensated(g32, origin=origin, spacing=(SPACING,) * 3)
+        torch.cuda.synchronize()
+        t_pack = time.perf_counter() - t0
+        g64 = g32.with_(vals=g32.vals.to("cpu", torch.float64),
+                        spacing=torch.tensor((SPACING,) * 3,
+                                             dtype=torch.float64),
+                        origin=torch.tensor(origin, dtype=torch.float64))
+        truth = evaluate_grid(g64, poses, s)
+        got = evaluate_compensated(cp, poses.cuda(), s)
+        plain = evaluate_packed(pack_grid(g32), poses.cuda().float(),
+                                torch.as_tensor(s, dtype=torch.float32,
+                                                device="cuda"))
+        torch.cuda.synchronize()
+        e_scale = float(truth.per_atom_energy.abs().max())
+        f_scale = float(truth.forces.abs().max())
+
+        def err(res, scale, field):
+            return float((getattr(res, field).cpu().double()
+                          - getattr(truth, field)).abs().max()) / scale
+
+        comp[gt] = {"E_rel": err(got, e_scale, "per_atom_energy"),
+                    "F_rel": err(got, f_scale, "forces"),
+                    "plain_f32_E_rel": err(plain, e_scale,
+                                           "per_atom_energy"),
+                    "plain_f32_F_rel": err(plain, f_scale, "forces"),
+                    "table_shape": list(cp.coeffs.shape),
+                    "pack_s": t_pack}
+        del cp, g32
+        check(comp[gt]["E_rel"] <= COMPENSATED_GATE,
+              f"compensated {gt}: energies {comp[gt]['E_rel']} off")
+        check(comp[gt]["F_rel"] <= COMPENSATED_GATE,
+              f"compensated {gt}: forces {comp[gt]['F_rel']} off")
+    torch.cuda.empty_cache()
+    emit({"phase": "semantics_check", "float64_cases": cases,
+          "compensated_bench_box": comp, "poses": N_COMPENSATED_POSES,
+          "gate": {"semantics_E": 1e-12, "semantics_F": "1e-10 rel",
+                   "compensated": COMPENSATED_GATE}})
 
 
 # ----------------------------------------------------------------------
@@ -1625,7 +1973,10 @@ def phase_streamed_path(torch, seed, lig, lig_crd, files,
     short segment."""
     from openmmgridforce_tpu_torch.grid import InterpolationMethod
     from openmmgridforce_tpu_torch.io.streaming import StreamedGridEvaluator
-    from openmmgridforce_tpu_torch.mm import (StreamedBatchMD, StreamSet,
+    import contextlib
+
+    from openmmgridforce_tpu_torch.mm import (MDState, StreamedBatchMD,
+                                              StreamSet, graphs,
                                               system_from_amber)
     from openmmgridforce_tpu_torch.ops import gridgen
     from openmmgridforce_tpu_torch.parallel import (init_replica_states,
@@ -1667,20 +2018,82 @@ def phase_streamed_path(torch, seed, lig, lig_crd, files,
         states = md.run(states, 300.0, STREAM_DRAIN_STEPS)
     torch.cuda.synchronize()
     segments0 = md.segments
+    recorded0 = dict(graphs.RECORDINGS)
     t0 = time.perf_counter()
     states = md.run(states, 300.0, n_steps)
     torch.cuda.synchronize()
     t_run = time.perf_counter() - t0
     segments = md.segments - segments0
+    recorded = {k: graphs.RECORDINGS[k] - recorded0[k] for k in recorded0}
+    # windows of the same steps as graph replays and as eager launches,
+    # from the final states under the same noise (the windows' states are
+    # dropped; the engine's region state carries over)
+    windows = {}
+    for mode in ("graph", "eager"):
+        gen_w = torch.Generator(device="cuda")
+        gen_w.manual_seed(seed + 2)
+        start = MDState(states.positions, states.velocities, gen_w)
+        ctx = graphs.eager() if mode == "eager" else contextlib.nullcontext()
+        retries0 = md.crossing_retries
+        with ctx:
+            t0 = time.perf_counter()
+            md.run(start, 300.0, EAGER_STEPS)
+            torch.cuda.synchronize()
+        windows[mode] = {
+            "replica_steps_per_s": EAGER_STEPS * STREAM_REPLICAS
+            / (time.perf_counter() - t0),
+            "crossing_retries": md.crossing_retries - retries0}
 
     def segment():
         nonlocal states
         states = md.run(states, 300.0, STREAM_PROFILED_STEPS)
         torch.cuda.synchronize()
 
-    wall_us, busy_us, n_ops, by_name = _profile(torch, segment,
-                                                host_ops=False)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    profiled = {}
+    for mode in ("graph", "eager"):
+        ctx = graphs.eager() if mode == "eager" else contextlib.nullcontext()
+        with ctx:
+            segment()                                   # warm-up
+            wall_us, busy_us, n_ops, by_name = _profile(torch, segment,
+                                                        host_ops=False)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+        profiled[mode] = {
+            "steps": STREAM_PROFILED_STEPS, "wall_ms": wall_us / 1e3,
+            "device_ms_per_step": (busy_us / STREAM_PROFILED_STEPS / 1e3
+                                   if n_ops else "not measured"),
+            "device_ops_per_step": n_ops / STREAM_PROFILED_STEPS,
+            "device_busy_share": (busy_us / wall_us if n_ops
+                                  else "not measured"),
+            "top_device_ms": {k[:80]: v / 1e3 for k, v in top}}
+
+    # one streamed segment recorded and eager under the same noise: fresh
+    # engines over the same evaluators, each drawing the segment's noise
+    # from a generator seeded alike
+    finals = {}
+    for mode in ("graph", "eager"):
+        check_set = StreamSet(evs, scals,
+                              pack_budget_bytes=int(pack_bytes * 1.5))
+        check_md = StreamedBatchMD(sets=[check_set], system=system,
+                                   dt=STREAM_DT, friction=STREAM_FRICTION,
+                                   refresh_steps=STREAM_REFRESH)
+        gen_c = torch.Generator(device="cuda")
+        gen_c.manual_seed(seed + 1)
+        start = MDState(states.positions.clone(),
+                        states.velocities.clone(), gen_c)
+        ctx = graphs.eager() if mode == "eager" else contextlib.nullcontext()
+        with ctx:
+            finals[mode] = check_md.run(start, 300.0,
+                                        GRAPH_CHECK_STREAM_STEPS)
+        torch.cuda.synchronize()
+    dx, dv = _max_delta(torch, finals["graph"], finals["eager"])
+    emit({"phase": "segment_graph_check", "path": "streamed_path",
+          "replicas": STREAM_REPLICAS, "steps": GRAPH_CHECK_STREAM_STEPS,
+          "groups": int(np.unique(check_set._starts, axis=0).shape[0]),
+          "max_abs_dx_nm": dx, "max_abs_dv_nm_per_ps": dv,
+          "bitwise_equal": dx == 0 and dv == 0, "gate": GRAPH_GATE})
+    check(dx <= GRAPH_GATE and dv <= GRAPH_GATE, f"streamed_path: graph and "
+          f"eager segments differ by {dx} nm, {dv} nm/ps")
+
     t_rep = replica_temperatures(states, system.masses)
     finite = bool(torch.isfinite(states.positions).all()
                   and torch.isfinite(states.velocities).all())
@@ -1696,14 +2109,11 @@ def phase_streamed_path(torch, seed, lig, lig_crd, files,
               sset._starts, axis=0).shape[0]),
           "segments": segments, "steps_per_s": n_steps / t_run,
           "replica_steps_per_s": n_steps * STREAM_REPLICAS / t_run,
-          "profiled_segment": {
-              "steps": STREAM_PROFILED_STEPS, "wall_ms": wall_us / 1e3,
-              "device_ms_per_step": (busy_us / STREAM_PROFILED_STEPS / 1e3
-                                     if n_ops else "not measured"),
-              "device_ops_per_step": n_ops / STREAM_PROFILED_STEPS,
-              "device_busy_share": (busy_us / wall_us if n_ops
-                                    else "not measured"),
-              "top_device_ms": {k[:80]: v / 1e3 for k, v in top}},
+          "recordings_in_timed_steps": recorded,
+          "window_steps": EAGER_STEPS,
+          "graph_window": windows["graph"],
+          "eager_window": windows["eager"],
+          "profiled_segment": profiled,
           "packs_built": sset.packs_built,
           "direct_builds": sset.direct_builds,
           "full_escalations": sset.full_escalations,
@@ -1731,6 +2141,7 @@ def main(argv=None):
                         help="timed steps of streamed_path (the stress-md "
                              "protocol's are 1,000)")
     args = parser.parse_args(argv)
+    faulthandler.enable()
 
     import torch
 
@@ -1744,6 +2155,7 @@ def main(argv=None):
     phase_build()
     phase_sass()
     phase_ragged(torch)
+    phase_twofloat_check(torch, args.seed)
 
     lig, lig_crd, rec, rec_crd = synthetic_complex(args.seed)
     counts, origin = grid_box(lig_crd)
@@ -1759,6 +2171,10 @@ def main(argv=None):
         phase_main_path(torch, args.seed, *complex_)
     phase_eval_check(torch, lig, system, binding, states)
     phase_step_profile(torch, system, binding, states)
+    temps = torch.full((N_REPLICAS,), 300.0, device="cuda")
+    phase_segment_graph_check(torch, "main_path", system, binding, states,
+                              GRAPH_CHECK_STEPS, 0.001, temps, args.seed)
+    phase_capture_failure()
     del binding
 
     system, binding, hermite, states, \
@@ -1768,7 +2184,10 @@ def main(argv=None):
     phase_deriv_eval_check(torch, lig, system, binding, hermite, states)
     phase_step_profile(torch, system, binding, states,
                        phase="deriv_step_profile")
+    phase_segment_graph_check(torch, "deriv_path", system, binding, states,
+                              GRAPH_CHECK_STEPS, 0.001, temps, args.seed)
     del binding, hermite
+    phase_semantics_check(torch, args.seed, *complex_)
 
     lig, lig_crd, rec, rec_crd = synthetic_complex(args.seed,
                                                    gap=BPMF_RECEPTOR_GAP)

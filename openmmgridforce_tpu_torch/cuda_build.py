@@ -29,6 +29,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LIBRARIES = {
     "gridgen_values": ("gridgen_values.cu",),
     "gridgen_derivs": ("gridgen_derivs.cu",),
+    "graph_while": ("graph_while.cu",),
 }
 
 

@@ -51,6 +51,19 @@ class Grid:
     grid_type: str = ""
     derivs: Optional[torch.Tensor] = None   # [nx, ny, nz, 27] or None
 
+    @property
+    def has_derivatives(self) -> bool:
+        return self.derivs is not None
+
+    @property
+    def num_points(self) -> int:
+        nx, ny, nz = self.counts
+        return nx * ny * nz
+
+    def with_(self, **kwargs) -> "Grid":
+        """A copy with the given fields replaced."""
+        return dataclasses.replace(self, **kwargs)
+
 
 def grid_from_numpy(vals, spacing, origin=(0.0, 0.0, 0.0), derivs=None,
                     interp_method=InterpolationMethod.TRILINEAR,

@@ -10,13 +10,17 @@ The stopping rule is the JAX package's, replica by replica: the first
 sweep always runs, a sweep measures its error before its own update, and a
 replica stops after the first sweep whose error was within tolerance (or
 after ``max_iter`` sweeps). A replica that has stopped is masked out of
-later sweeps, whose updates on it are exact no-ops, so the host checks for
-the end only every ``CHECK_EVERY`` sweeps (one synchronisation per block)
-and every replica still stops at its own sweep. On the card a block is a
-CUDA graph, recorded once per constraint set and shape and replayed: one
-launch in place of a few dozen. Each call adds its sweep
-counts to the function's ``stats`` (``apply_shake.stats``,
-``apply_rattle.stats``).
+later sweeps, whose updates on it are exact no-ops, so the end is checked
+only every ``CHECK_EVERY`` sweeps and every replica still stops at its own
+sweep. Called eagerly on the card, a block is a CUDA graph, recorded once
+per constraint set and shape and replayed, and the host checks after
+every block (one synchronisation per block). Inside a recorded MD segment
+(``mm/graphs.py``) the stop moves onto the device, as JAX's
+``lax.while_loop`` has it, in one of two exact ways that the set's
+``graph_stop`` selects: "while", blocks in a conditional WHILE node of the
+graph until no replica is active; "masked", every one of the ``max_iter``
+sweeps, masked. Each call adds its sweep counts to the function's
+``stats`` (``apply_shake.stats``, ``apply_rattle.stats``), on the device.
 """
 
 from __future__ import annotations
@@ -27,6 +31,9 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..ops.scatter import add_rows
+from . import graphs
+
 # sweeps between two host checks of the stopping rule
 CHECK_EVERY = 4
 
@@ -36,6 +43,9 @@ class ConstraintSet:
     idx: torch.Tensor        # [C, 2] int64 atom pairs
     length: torch.Tensor     # [C] target distances (nm)
     inv_mass: torch.Tensor   # [N] 1/mass
+    # how a recorded segment stops the sweeps on the device: "while" or
+    # "masked" (module docstring)
+    graph_stop: str = "while"
 
     @property
     def num_constraints(self) -> int:
@@ -69,39 +79,53 @@ def constraints_from_bonds(bond_idx, bond_r0, masses, which: str = "h_bonds",
 
 class SweepStats:
     """Sweep counts of a constraint function since the last ``reset``:
-    calls, the sweeps each batched call ran (``executed``, a host count)
-    and each replica's own count (the JAX loop's), summed and maximised on
-    the device until ``summary`` reads them."""
+    calls, the sweeps each batched call ran (``executed``) and each
+    replica's own count (the JAX loop's), summed and maximised on the
+    device, in buffers that recorded segments update in place, until
+    ``summary`` reads them. Calls while a segment block warms up before
+    its capture are not counted."""
 
     def __init__(self):
-        self.reset()
+        self._acc = {}   # device -> (sums [4], maxes [2]) int64
 
     def reset(self):
-        self.calls = 0
-        self.executed = 0
-        self.executed_max = 0
-        self.replicas = 0
-        self._sum = None
-        self._max = None
+        for sums, maxes in self._acc.values():
+            sums.zero_()
+            maxes.zero_()
 
-    def add(self, executed: int, sweeps):
-        self.calls += 1
-        self.executed += executed
-        self.executed_max = max(self.executed_max, executed)
-        self.replicas += sweeps.numel()
-        total, peak = sweeps.sum(), sweeps.max()
-        self._sum = total if self._sum is None else self._sum + total
-        self._max = peak if self._max is None else torch.maximum(self._max,
-                                                                 peak)
+    def add(self, executed, sweeps):
+        acc = self._acc.get(sweeps.device)
+        if acc is None:
+            acc = self._acc[sweeps.device] = (
+                torch.zeros(4, dtype=torch.int64, device=sweeps.device),
+                torch.zeros(2, dtype=torch.int64, device=sweeps.device))
+        if graphs.warming_up():
+            return
+        sums, maxes = acc
+        total = sweeps.sum()
+        if not torch.is_tensor(executed):
+            executed = torch.full_like(total, executed)
+        sums.add_(torch.stack([torch.ones_like(total),
+                               torch.full_like(total, sweeps.numel()),
+                               total, executed]))
+        torch.maximum(maxes, torch.stack([sweeps.max(), executed]),
+                      out=maxes)
 
     def summary(self) -> dict:
-        if not self.calls:
+        calls = replicas = total = executed = peak = peak_exec = 0
+        for sums, maxes in self._acc.values():
+            c, r, t, e = sums.tolist()
+            calls, replicas = calls + c, replicas + r
+            total, executed = total + t, executed + e
+            peak = max(peak, int(maxes[0]))
+            peak_exec = max(peak_exec, int(maxes[1]))
+        if not calls:
             return {"calls": 0}
-        return {"calls": self.calls,
-                "mean_sweeps": float(self._sum) / self.replicas,
-                "max_sweeps": int(self._max),
-                "mean_executed": self.executed / self.calls,
-                "max_executed": self.executed_max}
+        return {"calls": calls,
+                "mean_sweeps": total / replicas,
+                "max_sweeps": peak,
+                "mean_executed": executed / calls,
+                "max_executed": peak_exec}
 
 
 class _Relaxation:
@@ -127,6 +151,37 @@ class _Relaxation:
             err = self.sweep(self.bufs, self.state, self.active, self.omega)
             self.sweeps.add_(self.active)
             self.active.logical_and_(err > self.threshold)
+
+    def run_device(self, max_iter: int, stop: str):
+        """The sweeps with the stop on the device, for a recorded segment.
+        "while": blocks of CHECK_EVERY sweeps in a conditional WHILE node
+        while a replica is active and a whole block fits in ``max_iter``,
+        then the rest of ``max_iter`` masked; "masked": all ``max_iter``
+        sweeps, masked. Every replica stops at its own sweep either way.
+        Returns the sweeps the batch ran, a 0-d tensor."""
+        if stop not in ("while", "masked"):
+            raise ValueError(f"unknown graph_stop {stop!r}")
+        self.active.fill_(True)
+        self.sweeps.zero_()
+        if stop == "masked":
+            self.block(max_iter)
+            return torch.full((), max_iter, dtype=torch.int64,
+                              device=self.state.device)
+        n_full = max_iter // CHECK_EVERY
+        blocks = torch.zeros((), dtype=torch.int64, device=self.state.device)
+        if n_full:
+            def body():
+                self.block()
+                blocks.add_(1)
+                return self.active.any() & (blocks < n_full)
+
+            graphs.while_loop(body)
+        executed = blocks * CHECK_EVERY
+        rest = max_iter - n_full * CHECK_EVERY
+        if rest:
+            executed = executed + self.active.any() * rest
+            self.block(rest)
+        return executed
 
     def record(self):
         """Capture one block on a side stream, after running one as it is
@@ -168,14 +223,16 @@ _GRAPH_CACHE = 8
 def _relax(sweep, cs, bufs, inputs, state, max_iter, threshold, omega):
     """Sweep a copy of ``state`` [..., N, 3]; ``bufs`` are the tensors of
     the constraint set, ``inputs`` those of this call. Returns (state,
-    sweeps [...], sweeps the batch ran). On a CUDA device the sweeps run
-    as replays of a graph recorded once per constraint set, shape, dtype,
-    device, threshold and omega, over buffers this call's values are
-    copied into."""
-    if not state.is_cuda:
+    sweeps [...], sweeps the batch ran). Inside a recorded segment the
+    sweeps stop on the device (``cs.graph_stop``). Otherwise, on a CUDA
+    device, they run as replays of a graph recorded once per constraint
+    set, shape, dtype, device, threshold and omega, over buffers this
+    call's values are copied into."""
+    if not state.is_cuda or graphs.recording():
         r = _Relaxation(sweep, {**bufs, **inputs}, state.clone(), threshold,
                         omega)
-        executed = r.run(max_iter)
+        executed = (r.run_device(max_iter, cs.graph_stop) if state.is_cuda
+                    else r.run(max_iter))
         return r.state, r.sweeps, executed
     key = (sweep, id(cs), tuple(state.shape), state.dtype, state.device,
            threshold, omega)
@@ -208,7 +265,8 @@ def _pair_tensors(cs: ConstraintSet):
     zero = torch.zeros((), dtype=cs.inv_mass.dtype,
                        device=cs.inv_mass.device)
     return {"idx": torch.cat([i, j]), "im_i": im_i, "im_j": im_j,
-            "coef": torch.stack([-im_i, im_j]), "zero": zero}
+            "coef": torch.stack([-im_i, im_j]), "zero": zero,
+            "keys": (cs.idx,)}
 
 
 def _pair_diff(b, x):
@@ -221,10 +279,10 @@ def _pair_diff(b, x):
 def _scatter_(b, x, update):
     """Apply ``update`` [..., C, 3] to both atoms of every pair of x, in
     place, weighted -1/m_i and +1/m_j (the JAX package's two ``.at[].add``
-    in one ``index_add_``: an atom in several constraints receives every
-    contribution)."""
+    in one row sum, ``ops/scatter.py``: an atom in several constraints
+    receives every contribution)."""
     src = (update.unsqueeze(-3) * b["coef"]).flatten(-3, -2)
-    x.index_add_(-2, b["idx"], src)
+    add_rows(x, b["idx"], src, b["keys"])
 
 
 def _shake_sweep(b, x, active, omega):
@@ -264,8 +322,8 @@ def apply_shake(cs: ConstraintSet, x_ref, x_new, tol=1e-5, max_iter=150,
     b = _pair_tensors(cs)
     b["two_im"] = 2.0 * (b["im_i"] + b["im_j"])
     b["d0_sq"] = (cs.length * cs.length)[:, None]
-    b["floor"] = torch.tensor(1e-12, dtype=x_new.dtype,
-                              device=x_new.device)
+    b["floor"] = torch.full((), 1e-12, dtype=x_new.dtype,
+                            device=x_new.device)
     inputs = {"d_ref": _pair_diff(b, x_ref)}
     x, sweeps, executed = _relax(_shake_sweep, cs, b, inputs, x_new,
                                  max_iter, 2.0 * tol, omega)

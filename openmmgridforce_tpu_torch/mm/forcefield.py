@@ -6,14 +6,17 @@ OpenMM conventions:
   torsions: E = k (1 + cos(n phi - phase))
 
 Positions may carry leading batch dimensions, [..., N, 3]; energies are
-then [...]. The closed-form forces are assembled with ``index_add_`` along
-the atom dimension (the JAX package's one-hot matmul exists because
+then [...]. The closed-form forces are assembled with one row sum along
+the atom dimension (``ops/scatter.py``: ``index_add_`` on the CPU, a fixed
+order on the card; the JAX package's one-hot matmul exists because
 scatters are slow on a TPU).
 """
 
 from __future__ import annotations
 
 import torch
+
+from ..ops.scatter import add_rows
 
 
 def _at(x, col):
@@ -79,9 +82,11 @@ def bonded_energy(positions, system):
 # Closed-form forces (autograd of the energies above is the test oracle)
 # ----------------------------------------------------------------------
 
-def assemble_forces(positions, atom_ids, contribs):
-    """forces[..., n, :] = sum of contribs[..., k, :] with atom_ids[k] == n."""
-    return torch.zeros_like(positions).index_add_(-2, atom_ids, contribs)
+def assemble_forces(positions, atom_ids, contribs, keys):
+    """forces[..., n, :] = sum of contribs[..., k, :] with atom_ids[k] == n.
+    ``keys``: the persistent tensors ``atom_ids`` is made from, which key
+    its fixed order on the card (``ops/scatter.py``)."""
+    return add_rows(torch.zeros_like(positions), atom_ids, contribs, keys)
 
 
 def _bond_contribs(positions, idx, k, r0):
@@ -153,14 +158,14 @@ def bond_energy_forces(positions, idx, k, r0):
     if idx.shape[0] == 0:
         return _zero_energy(positions), torch.zeros_like(positions)
     e, ids, contribs = _bond_contribs(positions, idx, k, r0)
-    return e, assemble_forces(positions, ids, contribs)
+    return e, assemble_forces(positions, ids, contribs, (idx,))
 
 
 def angle_energy_forces(positions, idx, k, t0):
     if idx.shape[0] == 0:
         return _zero_energy(positions), torch.zeros_like(positions)
     e, ids, contribs = _angle_contribs(positions, idx, k, t0)
-    return e, assemble_forces(positions, ids, contribs)
+    return e, assemble_forces(positions, ids, contribs, (idx,))
 
 
 def torsion_energy_forces(positions, idx, k, periodicity, phase):
@@ -168,12 +173,12 @@ def torsion_energy_forces(positions, idx, k, periodicity, phase):
         return _zero_energy(positions), torch.zeros_like(positions)
     e, ids, contribs = _torsion_contribs(positions, idx, k, periodicity,
                                          phase)
-    return e, assemble_forces(positions, ids, contribs)
+    return e, assemble_forces(positions, ids, contribs, (idx,))
 
 
 def bonded_energy_forces(positions, system):
     """Closed-form energy and forces of all bonded terms, assembled with
-    one ``index_add_`` for the whole bonded force."""
+    one row sum for the whole bonded force."""
     energy = _zero_energy(positions)
     ids_list, contrib_list = [], []
     terms = (
@@ -193,5 +198,7 @@ def bonded_energy_forces(positions, system):
     if not ids_list:
         return energy, torch.zeros_like(positions)
     forces = assemble_forces(positions, torch.cat(ids_list),
-                             torch.cat(contrib_list, dim=-2))
+                             torch.cat(contrib_list, dim=-2),
+                             (system.bond_idx, system.angle_idx,
+                              system.torsion_idx))
     return energy, forces

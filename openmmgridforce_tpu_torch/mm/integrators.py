@@ -11,10 +11,14 @@ The classic scheme matches OpenMM's ``LangevinIntegrator``:
 ConstraintSet, SHAKE follows every position update with its correction
 folded into the velocities, then RATTLE.
 
-A segment is a Python loop of steps. States are [..., N, 3] (replicas are
-[R, N, 3]); the Gaussian noise xi comes from the state's explicit
-``torch.Generator``, or from a ``noise`` tensor the caller passes (the
-tests feed both packages the same numbers this way).
+States are [..., N, 3] (replicas are [R, N, 3]); the Gaussian noise xi
+comes from the state's explicit ``torch.Generator``, or from a ``noise``
+tensor the caller passes (the tests feed both packages the same numbers
+this way). On the CPU a segment is a Python loop of steps, the tests'
+oracle. On the card ``run_segment``, ``run_trajectory`` and
+``run_respa_segment`` replay CUDA graphs of blocks of steps
+(``mm/graphs.py``), each block's noise drawn from the generator at once
+or copied from the caller's.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from ..units import BOLTZ
+from . import graphs
 from .constraints import apply_rattle, apply_shake
 
 
@@ -64,14 +69,15 @@ def make_langevin_step(force_fn: Callable, masses, dt, friction,
 
     force_fn(positions) -> forces [..., N, 3] (kJ/mol/nm). masses [N] amu,
     dt ps, friction 1/ps, temperature K: a number, or a tensor that
-    broadcasts against [..., N, 1] (per-replica temperatures are [R, 1, 1]).
+    broadcasts against [..., N, 1] (per-replica temperatures are [R, 1, 1]);
+    a tensor is read at every step, so a recorded segment takes new
+    temperatures copied into it.
     ``constraints``: an optional ConstraintSet (SHAKE after position
     updates, the correction folded into velocities, then RATTLE).
     """
     inv_m = (1.0 / masses)[:, None]
     a = torch.exp(torch.tensor(-friction * dt, dtype=masses.dtype,
                                device=masses.device))
-    kT = BOLTZ * temperature
     # friction == 0 would make the classic force term 0/0; use the
     # ballistic limit (1-a)/gamma -> dt. The friction != 0 expression
     # keeps the reference's operation order: a one-ulp reorder sends f32
@@ -85,6 +91,7 @@ def make_langevin_step(force_fn: Callable, masses, dt, friction,
             noise = _normal(v, gen, noise)
             kick = (dt * f * inv_m if zero_friction
                     else (1.0 - a) * f * inv_m / friction)
+            kT = BOLTZ * temperature
             v = (a * v + kick
                  + torch.sqrt(kT * (1.0 - a * a) * inv_m) * noise)
             x_new = x + v * dt
@@ -100,6 +107,7 @@ def make_langevin_step(force_fn: Callable, masses, dt, friction,
             if constraints is not None:
                 x1, v = _constrain(constraints, x, x1, v, 0.5 * dt)
             noise = _normal(v, gen, noise)
+            kT = BOLTZ * temperature
             v = a * v + torch.sqrt(kT * (1.0 - a * a) * inv_m) * noise
             x2 = x1 + 0.5 * dt * v
             if constraints is not None:
@@ -136,10 +144,37 @@ def _check_noise(noise, n_steps):
         raise ValueError(f"noise has {noise.shape[0]} steps, not {n_steps}")
 
 
+def _recorded(state: MDState) -> bool:
+    """Whether a segment of ``state`` runs as graph replays: on the card,
+    and not already inside a recording (r-RESPA's inner steps)."""
+    return state.positions.is_cuda and not graphs.recording()
+
+
+def langevin_segment(step_fn: Callable, state: MDState, frames=False):
+    """A :class:`graphs.Segment` of ``step_fn`` over buffers shaped like
+    ``state``, carrying (positions, velocities), with a noise block of
+    the velocities' shape."""
+    gen = state.generator
+
+    def advance(carry, noise):
+        s = step_fn(MDState(carry[0], carry[1], gen), noise)
+        return s.positions, s.velocities
+
+    return graphs.Segment(advance, (state.positions, state.velocities),
+                          noise_shape=state.velocities.shape, frames=frames)
+
+
 def run_segment(step_fn: Callable, state: MDState, n_steps: int,
                 noise=None) -> MDState:
-    """Run ``n_steps`` steps; ``noise`` is None or [n_steps, ..., N, 3]."""
+    """Run ``n_steps`` steps; ``noise`` is None or [n_steps, ..., N, 3].
+    On the card the steps are graph replays; with ``noise`` None each
+    block's noise is drawn from the state's generator."""
     _check_noise(noise, n_steps)
+    if _recorded(state):
+        x, v = langevin_segment(step_fn, state).run(
+            (state.positions, state.velocities), n_steps, noise=noise,
+            generator=state.generator)
+        return MDState(x, v, state.generator)
     for s in range(n_steps):
         state = step_fn(state, None if noise is None else noise[s])
     return state
@@ -152,7 +187,8 @@ def run_trajectory(step_fn: Callable, state: MDState, n_steps: int,
     Returns (final_state, positions [n_steps // record_every, ..., N, 3]).
     ``n_steps`` must be a multiple of ``record_every``: silently simulating
     fewer steps than asked would corrupt any caller that trusts the final
-    state."""
+    state. On the card the frames are copied out of the recorded blocks'
+    per-step position buffer."""
     if n_steps % record_every:
         raise ValueError(
             f"n_steps={n_steps} is not a multiple of "
@@ -160,6 +196,16 @@ def run_trajectory(step_fn: Callable, state: MDState, n_steps: int,
             f"stop at {(n_steps // record_every) * record_every} steps")
     _check_noise(noise, n_steps)
     frames = []
+    if _recorded(state):
+        def keep(start, length, buf):
+            for u in range(length):
+                if (start + u + 1) % record_every == 0:
+                    frames.append(buf[u].clone())
+
+        x, v = langevin_segment(step_fn, state, frames=True).run(
+            (state.positions, state.velocities), n_steps, noise=noise,
+            generator=state.generator, on_block=keep)
+        return MDState(x, v, state.generator), torch.stack(frames)
     for s in range(n_steps):
         state = step_fn(state, None if noise is None else noise[s])
         if (s + 1) % record_every == 0:
@@ -213,6 +259,7 @@ def make_respa_langevin_step(slow_force_fn: Callable,
             v, _ = apply_rattle(constraints, s.positions, v)
         return MDState(s.positions, v, s.generator), f_slow2
 
+    step.n_inner = n_inner
     return step
 
 
@@ -220,9 +267,25 @@ def run_respa_segment(step_fn: Callable, slow_force_fn: Callable,
                       state: MDState, n_outer: int, noise=None) -> MDState:
     """Advance ``n_outer`` r-RESPA outer steps: one slow-force evaluation
     per outer step, plus one to seed the carry. ``noise`` is None or
-    [n_outer, n_inner, ..., N, 3]."""
+    [n_outer, n_inner, ..., N, 3]. On the card the outer steps are graph
+    replays carrying (positions, velocities, slow force)."""
     _check_noise(noise, n_outer)
     carry = (state, slow_force_fn(state.positions))
+    if _recorded(state):
+        gen = state.generator
+
+        def advance(c, nz):
+            s, f = step_fn((MDState(c[0], c[1], gen), c[2]), nz)
+            return s.positions, s.velocities, f
+
+        v = state.velocities
+        shape = (tuple(noise.shape[1:]) if noise is not None
+                 else (step_fn.n_inner,) + tuple(v.shape))
+        seg = graphs.Segment(advance, (state.positions, v, carry[1]),
+                             noise_shape=shape)
+        x, v, _ = seg.run((state.positions, v, carry[1]), n_outer,
+                          noise=noise, generator=gen)
+        return MDState(x, v, gen)
     for s in range(n_outer):
         carry = step_fn(carry, None if noise is None else noise[s])
     return carry[0]

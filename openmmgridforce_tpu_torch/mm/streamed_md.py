@@ -6,10 +6,10 @@ running the reference's tiled MD loop, CudaGridForceKernels.cpp:787-1028,
 over many independent replicas). A host-orchestrated segment loop groups
 replicas by region (each set's per-replica region starts, with
 hysteresis, union-first sharing and region-pool joining), runs each
-group's segment as one batched eager loop on the card against the group's
-region payload (a fused packed table, or raw region grids when no pack
-fits the budget), and reforms the groups between segments as the clouds
-drift. Atoms outside a set's full grid take that set's full-box restraint.
+group's segment as replays of a CUDA graph of its steps against the
+group's region payload (a fused packed table, or raw region grids when no
+pack fits the budget), and reforms the groups between segments as the
+clouds drift. Atoms outside a set's full grid take that set's full-box restraint.
 Every step of a segment folds the in-grid cloud's bounding box into a
 running one; the host downloads only the [R, S, 12] final and running
 boxes per segment, never the positions. A replica whose running box left
@@ -17,7 +17,12 @@ its region's interior re-runs the segment from its saved start in
 quarter-length chunks with its region re-centred (depth 2), and then moves
 onto the whole grid ("full-grid escalation", demoted after 4 calm rounds
 with 16 spare cells), which keeps the reference's every-step exactness for
-any trajectory.
+any trajectory. A segment's noise is drawn once per replica, [k, R, N, 3],
+before the replicas are grouped: every group takes its replicas' rows and
+every retry or escalation re-run its steps' slice of them, so a retry
+replays the first attempt's trajectory on a better region and no
+replica's trajectory depends on how the batch was grouped (the JAX
+engine's per-replica keys do the same).
 
 The engine generalises over several :class:`StreamSet`\\ s (co-located
 grids acting on one atom subset each, with one restraint per set), a
@@ -31,6 +36,7 @@ Escalated replicas run on the card against the raw full grids
 
 from __future__ import annotations
 
+import collections
 from typing import Sequence
 
 import numpy as np
@@ -41,8 +47,12 @@ from ..io.streaming import _HALO, StreamedGridEvaluator
 from ..ops.interpolate import evaluate_grid
 from ..ops.packed import (combine_packed_grids, evaluate_multi, pack_grid,
                           pack_grids_fused)
-from .integrators import MDState, make_langevin_step
+from . import graphs
+from .integrators import MDState, _recorded, make_langevin_step
 from .system import System, energy_and_forces
+
+# recorded group segments an engine keeps (by payloads and group size)
+_GROUP_GRAPHS = 8
 
 
 def _cloud_bounds(positions, full_lo, full_hi):
@@ -138,6 +148,7 @@ class StreamSet:
         self.full_escalations = 0
         self.packs_built = 0
         self.direct_builds = 0
+        self._tensors = {}      # static device tensors, by what they hold
 
     # --- geometry -------------------------------------------------------
     @property
@@ -152,13 +163,36 @@ class StreamSet:
                                               device=positions.device), :]
 
     def gather_index(self, n_total):
-        """The set's atom indices as a device tensor, or None when the set
-        covers all atoms in order."""
+        """The set's atom indices as a device tensor (made once), or None
+        when the set covers all atoms in order."""
         idx = self.atom_idx
         if idx is None or (len(idx) == n_total
                            and np.array_equal(idx, np.arange(n_total))):
             return None
-        return torch.as_tensor(idx, device=self.device)
+        key = ("gather", n_total)
+        if key not in self._tensors:
+            self._tensors[key] = torch.as_tensor(idx, device=self.device)
+        return self._tensors[key]
+
+    def device_tensors(self, dtype, device):
+        """(scalings [G, n], full box (lo [3], hi [3])) on ``device``, made
+        once: a recorded segment reads them at fixed addresses."""
+        key = ("set", dtype, device)
+        if key not in self._tensors:
+            box = tuple(torch.as_tensor(np.asarray(b, np.float64),
+                                        dtype=dtype, device=device)
+                        for b in self.full_box)
+            self._tensors[key] = (torch.as_tensor(self.scal_stack,
+                                                  dtype=dtype,
+                                                  device=device), box)
+        return self._tensors[key]
+
+    def resident_payloads(self):
+        """Identities of the payloads this set holds on the device."""
+        live = {id(v[0]) for v in self._packed.values()}
+        if self._full_pay is not None:
+            live.add(id(self._full_pay[0]))
+        return live
 
     def _interior(self, start):
         """Tightest interior across evaluators' halos for one region (or
@@ -436,6 +470,58 @@ def _default_step_factory(dt, friction, scheme):
     return factory
 
 
+def _payload_key(payload):
+    """A payload's identity: a fused pack's, or its region Grids' for the
+    direct stencil."""
+    if isinstance(payload, tuple):
+        return tuple(id(g) for g in payload)
+    return id(payload)
+
+
+class _GroupSegment:
+    """One group's steps over static buffers: the carry (positions,
+    velocities, and each set's last and running in-grid bbox), the group's
+    temperatures [B, 1, 1], and the payloads and base arguments it reads
+    (held, so that no other object takes their identities)."""
+
+    def __init__(self, md, states, carry, base_args, payloads, scals, boxes,
+                 gathers, noisy):
+        x = states.positions
+        self.payloads, self.base_args = list(payloads), base_args
+        self.temperature = torch.zeros((x.shape[0], 1, 1), dtype=x.dtype,
+                                       device=x.device)
+        ks = [s.oob_k for s in md.sets]
+
+        def force_fn(pos):
+            f = md.base_force(base_args, pos)
+            for pay, sc, box, k, g in zip(self.payloads, scals, boxes, ks,
+                                          gathers):
+                f = f + _set_forces(pos, pay, sc, box, k, g)
+            return f
+
+        step = md.step_factory(force_fn, self.temperature, base_args)
+        gen = states.generator
+
+        def advance(carry, noise):
+            state = MDState(carry[0], carry[1], gen)
+            state = step(state, noise) if noisy else step(state)
+            out = [state.positions, state.velocities]
+            for si, (g, box) in enumerate(zip(gathers, boxes)):
+                lo, hi = _cloud_bounds(_sub(state.positions, g), *box)
+                rlo, rhi = carry[2 + 4 * si + 2:2 + 4 * si + 4]
+                out += [lo, hi, torch.minimum(rlo, lo),
+                        torch.maximum(rhi, hi)]
+            return tuple(out)
+
+        self.segment = graphs.Segment(
+            advance, carry, noise_shape=x.shape if noisy else None,
+            generators=(() if noisy or gen is None else (gen,)))
+
+
+def _sub(pos, gather):
+    return pos if gather is None else pos.index_select(-2, gather)
+
+
 def _default_base_force(base_args, x):
     return energy_and_forces(base_args, [], x)[1]
 
@@ -474,7 +560,18 @@ class StreamedBatchMD:
     :class:`StreamSet`), a ``step_factory`` ``(force_fn, temperature,
     base_args) -> step_fn`` and a ``base_force`` ``(base_args, x) ->
     forces`` for every non-streamed term; ``run(..., base_args=...)``
-    hands whatever they need to them.
+    hands whatever they need to them. ``temperature`` is a [B, 1, 1]
+    tensor that the step must read at every step (a recorded segment
+    copies each group's temperatures into it). A step that takes a
+    ``noise`` argument gets the segment's per-replica noise rows [B, N, 3]
+    for each step, replayed exactly by crossing retries; a step that takes
+    none is called as ``step(state)`` and draws what it needs itself, as
+    before (a retry then draws afresh).
+
+    On the card each group's segment replays CUDA graphs of its steps
+    (``mm/graphs.py``), recorded once per payload and group size and kept
+    while the payloads stay resident; only the [R, S, 12] bounds of a
+    segment are downloaded.
     """
 
     def __init__(self, evaluators=None, scalings=None, system: System = None,
@@ -504,53 +601,68 @@ class StreamedBatchMD:
                            else _default_base_force)
         self.segments = 0
         self.crossing_retries = 0
+        self._graphs = collections.OrderedDict()
+        self._takes_noise = None
 
     @property
     def evaluators(self):
         return self.sets[0].evaluators
 
-    def _boxes(self, dtype, device):
-        return [tuple(torch.as_tensor(np.asarray(b, np.float64),
-                                      dtype=dtype, device=device)
-                      for b in s.full_box) for s in self.sets]
+    def _step_takes_noise(self, base_args, dtype, device):
+        if self._takes_noise is None:
+            t = torch.zeros((1, 1, 1), dtype=dtype, device=device)
+            self._takes_noise = graphs.takes_noise(self.step_factory(
+                torch.zeros_like, t, base_args))
+        return self._takes_noise
 
-    def _run_group(self, states, base_args, payloads, scals, temps, n_steps):
-        """One group's segment: ``n_steps`` eager steps of the replicas
+    def _prune_graphs(self):
+        """Drop recorded group segments whose fused packs left the pack
+        LRU: the recordings held them on the device."""
+        live = set()
+        for s in self.sets:
+            live |= s.resident_payloads()
+        for key, grp in list(self._graphs.items()):
+            if any(not isinstance(p, tuple) and id(p) not in live
+                   for p in grp.payloads):
+                del self._graphs[key]
+
+    def _run_group(self, states, base_args, payloads, temps, n_steps,
+                   noise):
+        """One group's segment: ``n_steps`` steps of the replicas
         ``states`` ([B, N, 3]) on their payloads, carrying each set's
-        running in-grid bbox. Returns (states, bounds [B, S, 12])."""
+        running in-grid bbox; ``noise`` [n_steps, B, N, 3] or None.
+        Returns (states, bounds [B, S, 12]). On the card the steps are
+        graph replays, recorded once per payload and group size."""
         x = states.positions
         dtype, device = x.dtype, x.device
-        boxes = self._boxes(dtype, device)
+        scals, boxes = zip(*(s.device_tensors(dtype, device)
+                             for s in self.sets))
         gathers = [s.gather_index(x.shape[-2]) for s in self.sets]
-        ks = [s.oob_k for s in self.sets]
-
-        def force_fn(pos):
-            f = self.base_force(base_args, pos)
-            for pay, sc, box, k, g in zip(payloads, scals, boxes, ks,
-                                          gathers):
-                f = f + _set_forces(pos, pay, sc, box, k, g)
-            return f
-
-        t = torch.as_tensor(np.array(temps), dtype=dtype,
-                            device=device)[:, None, None]
-        step = self.step_factory(force_fn, t, base_args)
-
-        def sub(pos, g):
-            return pos if g is None else pos.index_select(-2, g)
-
-        run = [_cloud_bounds(sub(x, g), *box)
-               for g, box in zip(gathers, boxes)]
-        for _ in range(n_steps):
-            states = step(states)
-            for si, (g, box) in enumerate(zip(gathers, boxes)):
-                lo, hi = _cloud_bounds(sub(states.positions, g), *box)
-                run[si] = (torch.minimum(run[si][0], lo),
-                           torch.maximum(run[si][1], hi))
-        per_set = []
-        for (g, box), (rlo, rhi) in zip(zip(gathers, boxes), run):
-            flo, fhi = _cloud_bounds(sub(states.positions, g), *box)
-            per_set.append(torch.cat([flo, fhi, rlo, rhi], dim=-1))
-        return states, torch.stack(per_set, dim=1)
+        noisy = noise is not None
+        carry = [x, states.velocities]
+        for g, box in zip(gathers, boxes):
+            lo, hi = _cloud_bounds(_sub(x, g), *box)
+            carry += [lo, hi, lo, hi]
+        args = (self, states, carry, base_args, payloads, scals, boxes,
+                gathers, noisy)
+        if _recorded(states):
+            key = (tuple(_payload_key(p) for p in payloads),
+                   tuple(x.shape), dtype, device, id(base_args), noisy)
+            grp = self._graphs.pop(key, None) or _GroupSegment(*args)
+            self._graphs[key] = grp
+            while len(self._graphs) > _GROUP_GRAPHS:
+                self._graphs.popitem(last=False)
+        else:
+            grp = _GroupSegment(*args)
+        grp.temperature.copy_(torch.as_tensor(
+            np.array(temps, np.float64), dtype=dtype,
+            device=device)[:, None, None])
+        out = grp.segment.run(carry, n_steps, noise=noise,
+                              generator=states.generator)
+        per_set = [torch.cat(out[2 + 4 * si:6 + 4 * si], dim=-1)
+                   for si in range(len(self.sets))]
+        return (MDState(out[0], out[1], states.generator),
+                torch.stack(per_set, dim=1))
 
     def run(self, states: MDState, temperatures, n_steps: int,
             base_args=None, progress=None) -> MDState:
@@ -569,27 +681,32 @@ class StreamedBatchMD:
         temps = np.broadcast_to(np.asarray(temperatures, np.float64),
                                 (n_rep,))
         bounds = []
-        for s, box in zip(self.sets, self._boxes(x.dtype, x.device)):
+        for s in self.sets:
+            box = s.device_tensors(x.dtype, x.device)[1]
             lo, hi = (b.cpu().numpy() for b in _cloud_bounds(s.take(x),
                                                              *box))
             bounds.append((lo, hi, np.isfinite(lo).all(axis=1)))
-        scals = [torch.as_tensor(s.scal_stack, dtype=x.dtype,
-                                 device=x.device) for s in self.sets]
+        noisy = self._step_takes_noise(base_args, x.dtype, x.device)
         done = 0
         while done < n_steps:
             k = min(self.refresh_steps, n_steps - done)
-            states, bounds = self._run_chunk(states, bounds, temps, scals,
-                                             base_args, k, depth=0)
+            noise = (torch.randn((k,) + tuple(x.shape),
+                                 generator=states.generator, dtype=x.dtype,
+                                 device=x.device) if noisy else None)
+            states, bounds = self._run_chunk(states, bounds, temps,
+                                             base_args, k, 0, noise)
             done += k
             if progress is not None:
                 progress(done, n_steps)
         return states
 
-    def _run_chunk(self, states, bounds, temps, scals, base_args, k, depth):
+    def _run_chunk(self, states, bounds, temps, base_args, k, depth, noise):
+        """``k`` steps from ``states``, with the retry ladder below them;
+        ``noise`` [k, R, N, 3] (or None) holds the chunk's rows, which
+        every re-run takes again."""
         bad = None
         try:
-            return self._segment(states, bounds, temps, scals, base_args,
-                                 k)
+            return self._segment(states, bounds, temps, base_args, k, noise)
         except _RegionCrossing as rc:
             if ((depth >= 2 or k < 4)
                     and not all(s.can_escalate() for s in self.sets)):
@@ -602,8 +719,8 @@ class StreamedBatchMD:
             # full-grid payload, where they cannot violate again
             for s in self.sets:
                 s.escalate(bad, n_rep)
-            return self._run_chunk(states, bounds, temps, scals, base_args,
-                                   k, depth)
+            return self._run_chunk(states, bounds, temps, base_args, k,
+                                   depth, noise)
         # drop the violators' hysteresis so the retry re-centres their
         # regions on the current clouds
         recenter = np.zeros(n_rep, dtype=bool)
@@ -612,15 +729,16 @@ class StreamedBatchMD:
             if s._starts is not None:
                 s._recenter = recenter
         sub = max(k // 4, 1)
-        left = k
-        while left > 0:
-            piece = min(sub, left)
-            states, bounds = self._run_chunk(states, bounds, temps, scals,
-                                             base_args, piece, depth + 1)
-            left -= piece
+        done = 0
+        while done < k:
+            piece = min(sub, k - done)
+            states, bounds = self._run_chunk(
+                states, bounds, temps, base_args, piece, depth + 1,
+                None if noise is None else noise[done:done + piece])
+            done += piece
         return states, bounds
 
-    def _segment(self, states, bounds, temps, scals, base_args, k):
+    def _segment(self, states, bounds, temps, base_args, k, noise):
         n_rep = states.positions.shape[0]
         starts = [s.assign(bounds[si]) for si, s in enumerate(self.sets)]
         combo = np.hstack(starts)                         # [R, 3S]
@@ -640,8 +758,8 @@ class StreamedBatchMD:
 
         if uniq.shape[0] == 1:
             payloads, interiors = group_payloads(0)
-            states, b = self._run_group(states, base_args, payloads, scals,
-                                        temps, k)
+            states, b = self._run_group(states, base_args, payloads, temps,
+                                        k, noise)
             bset = b.cpu().numpy()                 # one [R, S, 12] download
             perm = [np.arange(n_rep)]
             group_interiors = [interiors]
@@ -662,13 +780,15 @@ class StreamedBatchMD:
                 payloads, interiors = group_payloads(u)
                 out, b = self._run_group(
                     MDState(x[sel], v[sel], gen), base_args, payloads,
-                    scals, temps[idx], k)
+                    temps[idx], k,
+                    None if noise is None else noise[:, sel])
                 new_x[sel], new_v[sel] = out.positions, out.velocities
                 bset[idx] = b.cpu().numpy()
                 perm.append(idx)
                 group_interiors.append(interiors)
             states = MDState(new_x, new_v, gen)
         self.segments += 1
+        self._prune_graphs()
         # the check sees the running bbox; the next assignment the final
         bad_all, fins = [], []
         for si, s in enumerate(self.sets):

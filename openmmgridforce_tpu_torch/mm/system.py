@@ -7,6 +7,7 @@ dimension.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 from typing import Optional, Sequence
 
@@ -24,7 +25,8 @@ from ..ops.pairwise import PairTable, build_pair_table, pair_energy_forces
 from .amber import AmberTopology
 from .constraints import ConstraintSet, constraints_from_bonds
 from .forcefield import bonded_energy, bonded_energy_forces
-from .integrators import make_langevin_step, run_segment
+from .integrators import (MDState, _recorded, langevin_segment,
+                          make_langevin_step, run_segment)
 
 # accepted spellings of system_from_amber's ``constraints``
 _CONSTRAINT_ALIASES = {"HBonds": "h_bonds", "AllBonds": "all_bonds",
@@ -53,6 +55,7 @@ class System:
 
 def system_from_amber(top: AmberTopology, dtype=torch.float64,
                       hydrogen_mass: Optional[float] = None,
+                      include_nonbonded: bool = True,
                       constraints: Optional[str] = None,
                       device=None) -> System:
     """Build a System from a parsed AMBER topology, on ``device``.
@@ -60,6 +63,8 @@ def system_from_amber(top: AmberTopology, dtype=torch.float64,
     ``hydrogen_mass``: if set, repartition hydrogen masses to this value,
     subtracting the difference from the bonded heavy atom (OpenMM's
     hydrogenMass option).
+    ``include_nonbonded``: False leaves out the intra-ligand pair table
+    (``pairs`` None: bonded terms only).
     ``constraints``: None, "h_bonds" (alias "HBonds") or "all_bonds"
     (alias "AllBonds"). Constrained bonds leave the harmonic terms (OpenMM's
     createSystem semantics) and become the System's ConstraintSet, whose
@@ -78,16 +83,18 @@ def system_from_amber(top: AmberTopology, dtype=torch.float64,
                 masses[hi] += delta
                 masses[heavy] -= delta
 
-    exceptions = []
-    for p, (i, j) in enumerate(top.pairs14):
-        qq = top.charges[i] * top.charges[j] / top.scee[p]
-        sg = 0.5 * (top.sigmas[i] + top.sigmas[j])
-        ep = np.sqrt(top.epsilons[i] * top.epsilons[j]) / top.scnb[p]
-        exceptions.append((int(i), int(j), qq, sg, ep))
-    pairs = build_pair_table(top.charges, top.sigmas, top.epsilons,
-                             exclusions=sorted(set(top.exclusions)),
-                             exceptions=exceptions, dtype=dtype,
-                             device=device)
+    pairs = None
+    if include_nonbonded:
+        exceptions = []
+        for p, (i, j) in enumerate(top.pairs14):
+            qq = top.charges[i] * top.charges[j] / top.scee[p]
+            sg = 0.5 * (top.sigmas[i] + top.sigmas[j])
+            ep = np.sqrt(top.epsilons[i] * top.epsilons[j]) / top.scnb[p]
+            exceptions.append((int(i), int(j), qq, sg, ep))
+        pairs = build_pair_table(top.charges, top.sigmas, top.epsilons,
+                                 exclusions=sorted(set(top.exclusions)),
+                                 exceptions=exceptions, dtype=dtype,
+                                 device=device)
 
     cset = None
     bond_idx, bond_k, bond_r0 = top.bond_idx, top.bond_k, top.bond_r0
@@ -192,25 +199,87 @@ def energy_and_forces(system: System, grids: Sequence[GridBinding],
     return energy, forces
 
 
-def make_md_runner(n_steps: int, dt: float, friction: float,
-                   scheme: str = "classic", device=None):
-    """Build a Langevin segment runner for replica states on ``device``.
+# recorded segments of make_md_runner on the card, by what they were
+# recorded for; the oldest is dropped beyond _SEGMENT_CACHE
+_SEGMENTS = collections.OrderedDict()
+_SEGMENT_CACHE = 8
 
-    Returns ``run(states, system, grids, temperatures, noise=None)``:
-    ``states`` are [R, N, 3], ``temperatures`` a number or [R] (replica
-    ladders), ``noise`` None (drawn from the states' generator) or
-    [n_steps, R, N, 3]. ``scheme`` is "classic" or "middle"; the system's
-    constraints, if any, apply after every position update.
+
+class _MDSegment:
+    """A recorded Langevin segment of one system and set of grids: the
+    temperature buffer the steps read and the segment's blocks. Holds the
+    system and grids, so that no other object takes their identities."""
+
+    def __init__(self, system, grids, states, dt, friction, scheme,
+                 batched):
+        x = states.positions
+        shape = (x.shape[0], 1, 1) if batched else ()
+        self.system, self.grids = system, list(grids)
+        self.temperature = torch.zeros(shape, dtype=x.dtype,
+                                       device=x.device)
+
+        def force_fn(pos):
+            return energy_and_forces(system, self.grids, pos)[1]
+
+        step = make_langevin_step(force_fn, system.masses, dt, friction,
+                                  self.temperature, scheme=scheme,
+                                  constraints=system.constraints)
+        self.segment = langevin_segment(step, states)
+
+
+def _md_segment(system, grids, states, dt, friction, scheme, batched):
+    x = states.positions
+    key = (id(system), tuple((id(gb.grid), id(gb.scaling)) for gb in grids),
+           tuple(x.shape), x.dtype, x.device, scheme, dt, friction, batched)
+    seg = _SEGMENTS.pop(key, None)
+    if seg is None:
+        seg = _MDSegment(system, grids, states, dt, friction, scheme,
+                         batched)
+    _SEGMENTS[key] = seg
+    while len(_SEGMENTS) > _SEGMENT_CACHE:
+        _SEGMENTS.popitem(last=False)
+    return seg
+
+
+def make_md_runner(n_steps: int, dt: float, friction: float,
+                   scheme: str = "classic", device=None,
+                   batched: bool = True):
+    """Build a Langevin segment runner for states on ``device``.
+
+    Returns ``run(states, system, grids, temperatures, noise=None)``.
+    ``batched`` True: ``states`` are [R, N, 3] and ``temperatures`` a
+    number or [R] (replica ladders); False: one state [N, 3] and one
+    temperature. ``noise`` None (drawn from the states' generator) or
+    [n_steps, *states.shape]. ``scheme`` is "classic" or "middle"; the
+    system's constraints, if any, apply after every position update.
+
+    On the card the segment replays CUDA graphs of blocks of steps
+    (``mm/graphs.py``), recorded once per system, grids, state shape,
+    dtype, device, scheme, dt, friction and block length and kept in a
+    bounded cache, so the runners of one system share their recordings;
+    the temperatures are copied into the recording's buffer before the
+    replays. On the CPU it is the plain loop of steps.
     """
     device = resolve_device(device)
 
     def run(states, system, grids, temperatures, noise=None):
-        if states.positions.device != device:
-            raise ValueError(f"states are on {states.positions.device}, the "
-                             f"runner on {device}")
         x = states.positions
+        if x.device != device:
+            raise ValueError(f"states are on {x.device}, the runner on "
+                             f"{device}")
+        if x.dim() != (3 if batched else 2):
+            raise ValueError(f"states of shape {tuple(x.shape)}; the runner "
+                             f"takes {'[R, N, 3]' if batched else '[N, 3]'}")
         t = torch.as_tensor(temperatures, dtype=x.dtype, device=device)
-        t = t.expand(x.shape[0])[:, None, None]
+        t = t.expand(x.shape[0])[:, None, None] if batched else t.reshape(())
+        if _recorded(states):
+            seg = _md_segment(system, grids, states, dt, friction, scheme,
+                              batched)
+            seg.temperature.copy_(t)
+            xo, vo = seg.segment.run((x, states.velocities), n_steps,
+                                     noise=noise,
+                                     generator=states.generator)
+            return MDState(xo, vo, states.generator)
 
         def force_fn(pos):
             return energy_and_forces(system, grids, pos)[1]

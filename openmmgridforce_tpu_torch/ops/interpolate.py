@@ -74,6 +74,14 @@ def _index_tensor(values: tuple, device):
     return torch.tensor(values, dtype=torch.int64, device=device)
 
 
+@functools.lru_cache(maxsize=None)
+def const_tensor(values: tuple, dtype, device):
+    """A cached tensor of static values on ``device``: uploaded once, so a
+    step that reads it can be recorded into a CUDA graph (an upload in a
+    capture would synchronise with the host)."""
+    return torch.tensor(values, dtype=dtype, device=device)
+
+
 # ----------------------------------------------------------------------
 # Geometry and the common tail of every single-grid evaluator
 # ----------------------------------------------------------------------
@@ -83,11 +91,11 @@ def locate(positions, spacing, origin, counts):
 
     Returns (pos, corner, inside [...], ixyz [..., 3], f [..., 3])."""
     pos = positions - origin
-    fcounts = torch.tensor(counts, dtype=spacing.dtype, device=pos.device)
+    fcounts = const_tensor(tuple(counts), spacing.dtype, pos.device)
     corner = spacing * (fcounts - 1.0)
     inside = ((pos >= 0.0) & (pos <= corner)).all(-1)
     t = pos / spacing
-    hi = torch.tensor(counts, device=pos.device) - 2
+    hi = _index_tensor(tuple(c - 2 for c in counts), pos.device)
     ixyz = torch.minimum(torch.floor(t).to(torch.int64).clamp_min(0), hi)
     f = (t - ixyz).clamp(0.0, 1.0)
     return pos, corner, inside, ixyz, f

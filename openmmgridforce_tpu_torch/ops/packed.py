@@ -42,8 +42,9 @@ from .chain_rules import apply_invpower, invpower_value
 from .derivatives27 import DERIV_ORDERS, TRICUBIC_DERIV_MAP
 from .interpolate import (_CORNER_CX, _CORNER_CY, _CORNER_CZ,
                           HERMITE_FAMILIES, GridEval, _hermite_tensor_eval,
-                          cell_index, finish_single, grid_back_power,
-                          grid_runtime_inv, locate, oob_deviation)
+                          cell_index, const_tensor, finish_single,
+                          grid_back_power, grid_runtime_inv, locate,
+                          oob_deviation)
 
 _HERMITE_METHODS = (InterpolationMethod.TRICUBIC,
                     InterpolationMethod.TRIQUINTIC)
@@ -163,8 +164,23 @@ for _i, (_a, _b, _c) in enumerate(DERIV_ORDERS):
 # Packing
 # ----------------------------------------------------------------------
 
+class _Cells:
+    """Members every pack shares with the JAX package's."""
+
+    @property
+    def cell_counts(self):
+        nx, ny, nz = self.counts
+        return (nx - 1, ny - 1, nz - 1)
+
+
+class _FusedCells(_Cells):
+    @property
+    def num_grids(self) -> int:
+        return self.n_grids
+
+
 @dataclasses.dataclass(frozen=True)
-class PackedGrid:
+class PackedGrid(_Cells):
     """Per-cell polynomial coefficients plus evaluation config."""
 
     coeffs: torch.Tensor          # [ncells, K], K = degree^3
@@ -413,7 +429,7 @@ def evaluate_packed(packed: PackedGrid, positions,
 # ----------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
-class MultiPackedGrid:
+class MultiPackedGrid(_FusedCells):
     """G packed grids with identical geometry fused into one coefficient
     table [ncells, G*K]: one row gather per atom serves all G grids."""
 
@@ -502,7 +518,7 @@ def _finish_multi(interp, grad_s, back_powers, spacing, scaling, pos,
     ``scaling`` is [G, N]."""
     dtype, device = interp.dtype, interp.device
     if any(bp != 0.0 for bp in back_powers):
-        bps = torch.tensor(back_powers, dtype=dtype, device=device)
+        bps = const_tensor(tuple(back_powers), dtype, device)
         sign = torch.where(interp >= 0.0, 1.0, -1.0).to(dtype)
         a = interp.abs()
         act = (a > 1e-10) & (bps != 0.0)
@@ -553,7 +569,7 @@ def evaluate_multi(multi: MultiPackedGrid, positions,
 # ----------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
-class HermitePackedGrid:
+class HermitePackedGrid(_Cells):
     """Per-cell corner-derivative rows plus evaluation config."""
 
     coeffs: torch.Tensor          # [ncells, 8*D] (D = 8 or 27)
@@ -616,7 +632,7 @@ def evaluate_hermite_packed(hp: HermitePackedGrid, positions,
 
 
 @dataclasses.dataclass(frozen=True)
-class MultiHermitePackedGrid:
+class MultiHermitePackedGrid(_FusedCells):
     """G Hermite-packed grids fused into one row table [ncells, G*8*D]:
     one gather per atom serves every co-located grid in the bounded-basis
     representation."""

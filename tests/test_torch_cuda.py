@@ -338,3 +338,239 @@ def test_streamed_batch_md_on_the_card_matches_the_host(cuda, tmp_path):
     np.testing.assert_allclose(out["cuda"], out["cpu"], rtol=0, atol=1e-9)
     for key, value in books["cpu"].items():
         np.testing.assert_array_equal(books["cuda"][key], value)
+
+
+# ----------------------------------------------------------------------
+# Recorded MD segments
+# ----------------------------------------------------------------------
+
+def _ladder_system(cuda, dtype, constraints=None):
+    """A small ligand on fused B-spline packs of K1 grids, on the card."""
+    from openmmgridforce_tpu_torch.grid import InterpolationMethod
+    from openmmgridforce_tpu_torch.mm import GridBinding, system
+    from openmmgridforce_tpu_torch.ops.packed import (combine_packed_grids,
+                                                      pack_grid)
+
+    lig, x, rec, rec_x = chip_smoke.synthetic_complex(5, n_ligand=23,
+                                                      n_receptor=60)
+    counts, origin = (40, 42, 38), tuple(x.min(0) - 1.0)
+    grids = [gridgen.generate_grid(
+        counts, (0.05,) * 3, origin, gt, rec_x, rec.charges, rec.sigmas,
+        rec.epsilons, grid_cap=chip_smoke.GRID_CAP,
+        interp_method=InterpolationMethod.BSPLINE, dtype=dtype,
+        device=cuda) for gt in chip_smoke.GRID_TYPES]
+    scaling = torch.as_tensor(np.stack([gridgen.auto_scaling_factors(
+        gt, lig.charges, lig.sigmas, lig.epsilons)
+        for gt in chip_smoke.GRID_TYPES]), dtype=dtype, device=cuda)
+    binding = GridBinding(combine_packed_grids([pack_grid(g) for g in grids]),
+                          scaling)
+    ts = system.system_from_amber(lig, dtype=dtype, hydrogen_mass=4.0,
+                                  constraints=constraints, device=cuda)
+    return x, ts, binding
+
+
+@pytest.mark.parametrize("constraints,stop", [
+    (None, "while"), ("HBonds", "while"), ("HBonds", "masked")])
+def test_md_runner_graph_equals_eager(cuda, constraints, stop):
+    """The recorded segment against the same blocks run eagerly, with the
+    same explicit noise, on a ladder of 8 replicas: within 1e-6 in float32
+    (the force scatters add with atomics, in no fixed order)."""
+    import dataclasses
+
+    from openmmgridforce_tpu_torch import convert
+    from openmmgridforce_tpu_torch.mm import graphs, system
+
+    x, ts, binding = _ladder_system(cuda, torch.float32, constraints)
+    if ts.constraints is not None:
+        ts = dataclasses.replace(ts, constraints=dataclasses.replace(
+            ts.constraints, graph_stop=stop))
+    rng = np.random.default_rng(3)
+    n_steps, R = 22, 8
+    pos = x + 0.01 * rng.standard_normal((R,) + x.shape)
+    noise = torch.as_tensor(rng.standard_normal((n_steps,) + pos.shape),
+                            dtype=torch.float32, device=cuda)
+    temps = torch.linspace(300.0, 600.0, R, device=cuda)
+    run = system.make_md_runner(n_steps, 0.002 if constraints else 0.001,
+                                5.0, device=cuda)
+    out = {}
+    for mode in ("graph", "eager"):
+        states = convert.states_from_arrays(pos, np.zeros_like(pos), seed=0,
+                                            dtype=torch.float32, device=cuda)
+        if mode == "eager":
+            with graphs.eager():
+                out[mode] = run(states, ts, [binding], temps, noise=noise)
+        else:
+            out[mode] = run(states, ts, [binding], temps, noise=noise)
+    torch.cuda.synchronize()
+    for field in ("positions", "velocities"):
+        a, b = (getattr(out[m], field) for m in ("graph", "eager"))
+        assert torch.isfinite(a).all()
+        assert float((a - b).abs().max()) < 1e-6, field
+
+
+def test_graph_segment_matches_the_host_in_float64(cuda):
+    """A constrained float64 segment recorded on the card (the sweeps
+    stopped by a while node) against the plain loop on the host."""
+    from openmmgridforce_tpu_torch import convert
+    from openmmgridforce_tpu_torch.mm import integrators, system
+
+    lig, x, _, _ = chip_smoke.synthetic_complex(5, n_ligand=23,
+                                                n_receptor=10)
+    rng = np.random.default_rng(8)
+    pos = x + 0.01 * rng.standard_normal((5,) + x.shape)
+    noise = rng.standard_normal((10,) + pos.shape)
+    out = {}
+    for dev in ("cpu", cuda):
+        ts = system.system_from_amber(lig, hydrogen_mass=4.0,
+                                      constraints="HBonds", device=dev)
+        step = integrators.make_langevin_step(
+            lambda p, ts=ts: system.energy_and_forces(ts, [], p)[1],
+            ts.masses, 0.002, 5.0, 300.0, constraints=ts.constraints)
+        s = integrators.run_segment(
+            step, convert.states_from_arrays(pos, np.zeros_like(pos), seed=0,
+                                             device=dev), 10,
+            noise=torch.as_tensor(noise, device=dev))
+        out[str(dev)[:4]] = s.positions.cpu().numpy()
+    np.testing.assert_allclose(out["cuda"], out["cpu"], rtol=0, atol=1e-10)
+
+
+def test_sampler_trials_reuse_one_recording(cuda):
+    """Sampler.run_md builds a runner per trial; the trials replay the
+    recording the first one made, and exchange works on its states."""
+    from openmmgridforce_tpu_torch.mm import system
+    from openmmgridforce_tpu_torch.sampling import Sampler, SamplerConfig
+
+    x, ts, binding = _ladder_system(cuda, torch.float32, "HBonds")
+    system._SEGMENTS.clear()
+    config = SamplerConfig(n_states=6, dt=0.002, friction=5.0,
+                           md_steps_per_trial=12, seed=4)
+    sampler = Sampler(ts, [binding], x, config, device=cuda)
+    sampler.run_md()
+    (seg,) = system._SEGMENTS.values()
+    graph = seg.segment._blocks[4].graph
+    assert graph is not None
+    sampler.run(2, n_exchange_per_trial=3, n_gmc_per_trial=0)
+    assert len(system._SEGMENTS) == 1
+    assert seg.segment._blocks[4].graph is graph
+    assert torch.isfinite(sampler.states.positions).all()
+
+
+def test_capture_failure_raises(cuda, tmp_path):
+    """A step that synchronises with the host cannot be recorded: the
+    segment raises, and does not fall back to eager steps. (Run in a child
+    process: PyTorch may abort the process when it destroys a graph whose
+    capture failed.)"""
+    import subprocess
+    import sys
+
+    script = tmp_path / "capture_fails.py"
+    script.write_text(
+        "import torch\n"
+        "from openmmgridforce_tpu_torch.mm import graphs\n"
+        "x = torch.ones(3, device='cuda')\n"
+        "def advance(carry, noise):\n"
+        "    return (carry[0] * float(carry[0].sum()),)\n"
+        "seg = graphs.Segment(advance, (x,))\n"
+        "try:\n"
+        "    seg.run((x,), 8)\n"
+        "except Exception as e:\n"
+        "    print('raised', type(e).__name__, flush=True)\n")
+    root = str(__import__("pathlib").Path(chip_smoke.__file__).parent)
+    proc = subprocess.run([sys.executable, str(script)], capture_output=True,
+                          text=True, timeout=300, cwd=root,
+                          env={**__import__("os").environ,
+                               "PYTHONPATH": root})
+    assert "raised" in proc.stdout, proc.stdout + proc.stderr
+    assert "Error" in proc.stdout
+
+
+def test_trajectory_and_respa_segments_on_the_card(cuda):
+    """run_trajectory (frames copied out of the recorded blocks) and
+    run_respa_segment (the slow force carried through them), constrained,
+    in float64 on the card against the plain loops on the host."""
+    from openmmgridforce_tpu_torch import convert
+    from openmmgridforce_tpu_torch.mm import forcefield, integrators, system
+    from openmmgridforce_tpu_torch.ops import pairwise
+
+    lig, x, _, _ = chip_smoke.synthetic_complex(5, n_ligand=23,
+                                                n_receptor=10)
+    rng = np.random.default_rng(9)
+    pos = x + 0.01 * rng.standard_normal((4,) + x.shape)
+    noise = rng.standard_normal((10,) + pos.shape)
+    respa_noise = rng.standard_normal((6, 4) + pos.shape)
+    out = {}
+    for dev in ("cpu", cuda):
+        ts = system.system_from_amber(lig, hydrogen_mass=4.0,
+                                      constraints="HBonds", device=dev)
+
+        def slow(p, ts=ts):
+            return pairwise.pair_energy_forces(ts.pairs, p)[1]
+
+        def fast(p, ts=ts):
+            return forcefield.bonded_energy_forces(p, ts)[1]
+
+        def start():
+            return convert.states_from_arrays(pos, np.zeros_like(pos),
+                                              seed=0, device=dev)
+
+        step = integrators.make_langevin_step(
+            lambda p, ts=ts: system.energy_and_forces(ts, [], p)[1],
+            ts.masses, 0.002, 5.0, 300.0, constraints=ts.constraints)
+        final, traj = integrators.run_trajectory(
+            step, start(), 10, 5, noise=torch.as_tensor(noise, device=dev))
+        respa = integrators.make_respa_langevin_step(
+            slow, fast, ts.masses, 0.002, 4, 5.0, 300.0,
+            constraints=ts.constraints)
+        r = integrators.run_respa_segment(
+            respa, slow, start(), 6,
+            noise=torch.as_tensor(respa_noise, device=dev))
+        out[str(dev)[:4]] = [t.cpu().numpy() for t in
+                             (final.positions, traj, r.positions,
+                              r.velocities)]
+    for a, b in zip(out["cpu"], out["cuda"]):
+        np.testing.assert_allclose(b, a, rtol=0, atol=1e-9)
+
+
+def test_streamed_step_without_noise_records_its_generator(cuda, tmp_path):
+    """A user step that takes no noise draws from the states' generator
+    inside the recorded group segment (the generator is registered with
+    the recording): the run is finite and a second run from the same seed
+    repeats it."""
+    from openmmgridforce_tpu_torch import convert
+    from openmmgridforce_tpu_torch.grid import InterpolationMethod
+    from openmmgridforce_tpu_torch.io import write_grid_tiled
+    from openmmgridforce_tpu_torch.io.streaming import StreamedGridEvaluator
+    from openmmgridforce_tpu_torch.mm import (StreamedBatchMD, StreamSet,
+                                              integrators, system)
+
+    lig, x, _, _ = chip_smoke.synthetic_complex(3, n_ligand=10,
+                                                n_receptor=10)
+    x = x - x.min(0)
+    g = gridgen.generate_grid((33, 33, 33), (0.125,) * 3, (-1.0,) * 3,
+                              "lja", *_receptor(57, 15), grid_cap=400.0,
+                              dtype=torch.float64, device="cpu")
+    path = str(tmp_path / "lja.tiled")
+    write_grid_tiled(path, g, tile_size=8)
+    scal = [gridgen.auto_scaling_factors("lja", lig.charges, lig.sigmas,
+                                         lig.epsilons)]
+    ts = system.system_from_amber(lig, dtype=torch.float64, device=cuda)
+
+    def factory(force_fn, t, base_args):
+        inner = integrators.make_langevin_step(force_fn, base_args.masses,
+                                               0.0005, 5.0, t)
+        return lambda state: inner(state)
+
+    runs = []
+    for _ in range(2):
+        ev = StreamedGridEvaluator(path, InterpolationMethod.BSPLINE,
+                                   region_shape=(33, 33, 33),
+                                   dtype=torch.float64, device=cuda)
+        md = StreamedBatchMD(sets=[StreamSet([ev], scal)], system=ts,
+                             refresh_steps=8, step_factory=factory)
+        pos = np.stack([x, x + 0.3])
+        states = convert.states_from_arrays(pos, np.zeros_like(pos), seed=3,
+                                            device=cuda)
+        runs.append(md.run(states, 300.0, 16).positions.cpu())
+    assert torch.isfinite(runs[0]).all()
+    assert not torch.equal(runs[0], torch.as_tensor(np.stack([x, x + 0.3])))
+    torch.testing.assert_close(runs[0], runs[1], rtol=0, atol=1e-12)

@@ -75,9 +75,15 @@ def test_no_jax_in_sources():
 def test_every_kernel_has_its_source():
     """One library per kernel of the TPU-kernel table, each with its
     sources under csrc/, a wrapper with a launch counter, and a plain twin
-    beside it."""
-    assert set(cuda_build.LIBRARIES) == {"gridgen_values", "gridgen_derivs"}
-    for name, sources in cuda_build.LIBRARIES.items():
+    beside it; beside them the binding that adds conditional WHILE nodes
+    to recorded MD segments (no TPU kernel's port)."""
+    kernels = {"gridgen_values", "gridgen_derivs"}
+    assert set(cuda_build.LIBRARIES) == kernels | {"graph_while"}
+    text = (cuda_build.CSRC / "graph_while.cu").read_text()
+    assert 'extern "C"' in text and "__global__" in text
+    assert "cudaGraphCondTypeWhile" in text
+    for name in kernels:
+        sources = cuda_build.LIBRARIES[name]
         assert sources, name
         for src in sources:
             text = (cuda_build.CSRC / src).read_text()

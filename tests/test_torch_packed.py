@@ -199,3 +199,35 @@ def test_pack_grids_fused_refuses_mixed_grids():
     b = _grids(81, 0, 0)[1]
     with pytest.raises(ValueError, match="share"):
         packed.pack_grids_fused([a, b], device="cpu")
+
+
+def test_grid_members_match_jax():
+    """Grid.has_derivatives, num_points and with_ (openmmgridforce_tpu/
+    grid.py:132-143) on the port's Grid."""
+    for derivs in (False, True):
+        jg, tg = (_hermite_grids(41, 3) if derivs else _grids(41, 1, 0))
+        assert tg.has_derivatives == jg.has_derivatives == derivs
+        assert tg.num_points == jg.num_points == int(np.prod(COUNTS))
+        jn, tn = jg.with_(oob_k=12.5), tg.with_(oob_k=12.5)
+        assert tn.oob_k == jn.oob_k == 12.5 and tg.oob_k == jg.oob_k
+        assert tn.vals is tg.vals and tn.counts == jn.counts
+
+
+def test_pack_members_match_jax():
+    """cell_counts on the four pack classes and num_grids on the two fused
+    ones, as the JAX package's packs give them."""
+    jg, tg = _grids(42, 1, 0)
+    jh, th = _hermite_grids(43, 3)
+    pairs = [(jpacked.pack_grid(jg), packed.pack_grid(tg)),
+             (jpacked.combine_packed_grids([jpacked.pack_grid(jg)] * 3),
+              packed.combine_packed_grids([packed.pack_grid(tg)] * 3)),
+             (jpacked.pack_grid_hermite(jh), packed.pack_grid_hermite(th)),
+             (jpacked.combine_hermite_packed(
+                 [jpacked.pack_grid_hermite(jh)] * 2),
+              packed.combine_hermite_packed(
+                  [packed.pack_grid_hermite(th)] * 2))]
+    for ref, got in pairs:
+        assert got.cell_counts == tuple(ref.cell_counts) == tuple(
+            c - 1 for c in COUNTS)
+    for ref, got in (pairs[1], pairs[3]):
+        assert got.num_grids == ref.num_grids == ref.n_grids
