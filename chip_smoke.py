@@ -24,8 +24,8 @@ and the instruction counts of its atom loop. Every MD segment runs as
 replays of CUDA graphs of blocks of steps; each path also times (and
 profiles) the same segment as eager launches, and segment_graph_check
 holds the two trajectories against each other under the same explicit
-noise (the constrained ladder with both device-side stops of the
-constraint solver, and a failed capture must raise). twofloat_check and
+noise (the constrained ladder with its sweeps stopped on the device by a
+WHILE node, and a failed capture must raise). twofloat_check and
 semantics_check run the double-float32 tier and the alternate kernel
 semantics on the card against float64 on the host. Every
 phase prints one JSON line; the last line is {"ok": true, "device": {...}}.
@@ -42,6 +42,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import faulthandler
+import gc
 import json
 import os
 import re
@@ -171,9 +172,10 @@ GRAPH_CHECK_STEPS = 50
 GRAPH_CHECK_CONSTRAINED_STEPS = 20
 GRAPH_CHECK_STREAM_STEPS = 20
 GRAPH_GATE = 1e-6
-# bpmf_path: MD segments timed for each way the recorded constraint
-# solver stops on the device, and eagerly
+# bpmf_path: MD segments timed as recordings (with fixed-order and with
+# atomic row sums) and eagerly; block replays timed back to back
 BPMF_CANDIDATE_SEGMENTS = 2
+BPMF_REPLAYS = 25
 # semantics_check / twofloat_check: the accuracy tier on the card
 TWOFLOAT_N = 1 << 20
 COMPENSATED_GATE = 2e-6      # tests/test_compensated.py's rtol
@@ -1108,11 +1110,9 @@ def phase_segment_graph_check(torch, path, system, binding, states, n_steps,
         eager = run(start, system, [binding], temperatures, noise=noise)
     torch.cuda.synchronize()
     dx, dv = _max_delta(torch, graph, eager)
-    stop = (system.constraints.graph_stop if system.constraints is not None
-            else None)
     emit({"phase": "segment_graph_check", "path": path,
           "replicas": int(x.shape[0]), "steps": n_steps,
-          "constraint_stop": stop, "max_abs_dx_nm": dx,
+          "constrained": system.constraints is not None, "max_abs_dx_nm": dx,
           "max_abs_dv_nm_per_ps": dv, "bitwise_equal": dx == 0 and dv == 0,
           "gate": GRAPH_GATE})
     check(torch.isfinite(graph.positions).all(), f"{path}: non-finite graph "
@@ -1155,7 +1155,8 @@ def phase_bpmf_path(torch, seed, lig, lig_crd, rec, rec_crd, counts,
     slab, an HBonds-constrained system with hydrogen mass 4, a geometric
     300-600 K ladder at dt 2 fs; equilibration in drain rounds, then
     trials of exchange sweeps, genetic-MC sweeps and MD segments, the last
-    one profiled. Returns the values kernel's launches on this path."""
+    one timed beside its MD's device time. Returns the values kernel's
+    launches on this path."""
     from openmmgridforce_tpu_torch.grid import InterpolationMethod
     from openmmgridforce_tpu_torch.mm import GridBinding, system_from_amber
     from openmmgridforce_tpu_torch.mm.constraints import (apply_rattle,
@@ -1217,17 +1218,23 @@ def phase_bpmf_path(torch, seed, lig, lig_crd, rec, rec_crd, counts,
                     n_gmc_per_trial=BPMF_GMC)
         _sync(torch, device)
 
+    t0 = time.perf_counter()
+    last_trial()
+    wall_s = time.perf_counter() - t0
+    sweeps = (apply_shake.stats.summary(), apply_rattle.stats.summary())
+    timed = {"wall_s": wall_s}
     if torch.device(device).type == "cuda":
-        wall_us, busy_us, n_ops, _ = _profile(torch, last_trial,
-                                              host_ops=False)
-        profiled = {"wall_s": wall_us / 1e6,
-                    "device_busy_s": busy_us / 1e6 if n_ops else None,
-                    "device_busy_share": busy_us / wall_us if n_ops
-                    else "not measured",
-                    "device_ops": n_ops}
-    else:
-        last_trial()
-        profiled = "not measured: no CUDA device"
+        # the trial's MD as device time: its block replayed back to back
+        # (the profiler does not trace the WHILE bodies of the recording)
+        from openmmgridforce_tpu_torch.mm.system import _md_segment
+
+        seg = _md_segment(sampler.system, sampler.grids, sampler.states,
+                          config.dt, config.friction, "classic",
+                          True).segment
+        ms = _replay_ms_per_step(torch, seg)
+        timed.update({"md_device_ms_per_step": ms,
+                      "md_device_share_of_trial": (ms * nstep_md / 1e3
+                                                   / wall_s)})
     launches = {"gridgen_values": values_kernel.launches,
                 "gridgen_derivs": derivs_kernel.launches}
 
@@ -1264,8 +1271,8 @@ def phase_bpmf_path(torch, seed, lig, lig_crd, rec, rec_crd, counts,
               equil_steps * n_states / t_equil,
           "trials_timed": n_trials - 1, "trials_s": t_trials,
           "replica_steps_per_s": steps_timed / t_trials,
-          "shake_sweeps_per_step": apply_shake.stats.summary(),
-          "rattle_sweeps_per_step": apply_rattle.stats.summary(),
+          "shake_sweeps_per_step": sweeps[0],
+          "rattle_sweeps_per_step": sweeps[1],
           "exchange_accepted": [sampler.n_exchange_accepted,
                                 sampler.n_exchange_attempted],
           "gmc_accepted": [sampler.n_gmc_accepted, sampler.n_gmc_attempted],
@@ -1274,7 +1281,7 @@ def phase_bpmf_path(torch, seed, lig, lig_crd, rec, rec_crd, counts,
           "max_T_K": float(t_inst.max()),
           "max_rel_constraint_violation": violation,
           "min_ligand_receptor_nm": contact,
-          "profiled_trial": profiled, "finite": finite})
+          "timed_trial": timed, "finite": finite})
     if torch.device(device).type == "cuda":
         check(launches["gridgen_values"] >= 3,
               f"gridgen_values launched {launches['gridgen_values']} times "
@@ -1293,30 +1300,67 @@ def phase_bpmf_path(torch, seed, lig, lig_crd, rec, rec_crd, counts,
     return launches["gridgen_values"]
 
 
-def phase_bpmf_segments(torch, sampler, nstep_md):
-    """The sampler's MD segment timed for each way the recorded constraint
-    solver stops on the device ("while": a conditional WHILE node per
-    block of sweeps; "masked": every sweep up to the cap, masked) and as
-    eager launches (per-block graphs of sweeps with a host check), each
-    with its sweep counts, the eager one profiled too; then the
-    constrained ladder through segment_graph_check with both stops."""
-    import contextlib
+def _atomic_plan(index, n_atoms, keys, coef=None, src_rows=None,
+                 dtype=None):
+    """A row sum through ``index_add_`` on the card too (its atomics add
+    in no fixed order): what the fixed-order sums are timed against."""
+    from openmmgridforce_tpu_torch.ops.scatter import RowSum
 
+    return RowSum(index, coef, n_atoms,
+                  len(index) if src_rows is None else int(src_rows),
+                  None, None)
+
+
+def _replay_ms_per_step(torch, seg, reps=BPMF_REPLAYS):
+    """Device time a step of a recorded segment: its block graph replayed
+    ``reps`` times back to back, timed with CUDA events (the host launches
+    a replay in microseconds, the card runs it in milliseconds). The
+    profiler is not used: it does not trace the bodies of conditional
+    nodes (PERF.md)."""
     from openmmgridforce_tpu_torch.mm import graphs
+
+    graph = seg._blocks[graphs.BLOCK].graph
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (reps * graphs.BLOCK)
+
+
+def phase_bpmf_segments(torch, sampler, nstep_md):
+    """The sampler's MD segment as graph replays (the constraint sweeps
+    stopped by a WHILE node), the same recorded with the bonded and
+    constraint row sums through ``index_add_``'s atomics instead of the
+    fixed-order sums, and as eager launches (per-block graphs of sweeps
+    with a host check): rates, sweep counts, device ms a step (recordings:
+    back-to-back replays; eager: the profiler); then the constrained ladder
+    through segment_graph_check."""
+    import contextlib
+    import unittest.mock
+
+    from openmmgridforce_tpu_torch.mm import constraints, forcefield, graphs
     from openmmgridforce_tpu_torch.mm.constraints import (apply_rattle,
                                                           apply_shake)
+    from openmmgridforce_tpu_torch.mm.system import _md_segment
 
     system = sampler.system
-    cs = system.constraints
     n_states = sampler.states.positions.shape[0]
     out = {}
-    for mode in ("while", "masked", "eager"):
-        # the sampler's own system for the default stop: its recording is
-        # the one the profiled trial traced
-        sampler.system = (system if mode in ("eager", cs.graph_stop) else
-                          dataclasses.replace(system, constraints=(
-                              dataclasses.replace(cs, graph_stop=mode))))
-        ctx = graphs.eager() if mode == "eager" else contextlib.nullcontext()
+    for mode in ("graph", "graph_index_add", "eager"):
+        ctx = contextlib.ExitStack()
+        if mode == "eager":
+            ctx.enter_context(graphs.eager())
+        if mode == "graph_index_add":
+            # a system of its own, so that its recording is its own
+            sampler.system = dataclasses.replace(system)
+            for mod in (constraints, forcefield):
+                ctx.enter_context(unittest.mock.patch.object(
+                    mod, "row_sum_plan", _atomic_plan))
         with ctx:
             sampler.run_md(nstep_md)          # records the segment, untimed
             torch.cuda.synchronize()
@@ -1327,40 +1371,43 @@ def phase_bpmf_segments(torch, sampler, nstep_md):
                 sampler.run_md(nstep_md)
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
-            sweeps = {"shake": apply_shake.stats.summary(),
-                      "rattle": apply_rattle.stats.summary()}
-            out[mode] = {
-                "replica_steps_per_s": (BPMF_CANDIDATE_SEGMENTS * nstep_md
-                                        * n_states / seconds),
-                "sweeps_per_call": sweeps}
-            if mode != "eager":
-                # the recorded segments' figures are the profiled trial's:
-                # profiling another recording with WHILE nodes has ended
-                # the process with a segmentation fault (PERF.md)
-                continue
+            row = {"replica_steps_per_s": (BPMF_CANDIDATE_SEGMENTS * nstep_md
+                                           * n_states / seconds),
+                   "sweeps_per_call": {"shake": apply_shake.stats.summary(),
+                                       "rattle": apply_rattle.stats.summary()}}
+            wall_ms = seconds * 1e3 / (BPMF_CANDIDATE_SEGMENTS * nstep_md)
+            if mode == "eager":
+                def segment():
+                    sampler.run_md(nstep_md)
+                    torch.cuda.synchronize()
 
-            def segment():
-                sampler.run_md(nstep_md)
-                torch.cuda.synchronize()
-
-            wall_us, busy_us, n_ops, _ = _profile(torch, segment,
-                                                  host_ops=False)
-        out[mode].update({
-            "device_ops_per_step": n_ops / nstep_md,
-            "device_ms_per_step": (busy_us / nstep_md / 1e3
-                                   if n_ops else "not measured"),
-            "device_busy_share": (busy_us / wall_us if n_ops
-                                  else "not measured")})
+                wall_us, busy_us, n_ops, _ = _profile(torch, segment,
+                                                      host_ops=False)
+                row.update({
+                    "device_ops_per_step": n_ops / nstep_md,
+                    "device_ms_per_step": (busy_us / nstep_md / 1e3
+                                           if n_ops else "not measured"),
+                    "device_busy_share": (busy_us / wall_us if n_ops
+                                          else "not measured")})
+            else:
+                seg = _md_segment(sampler.system, sampler.grids,
+                                  sampler.states, sampler.config.dt,
+                                  sampler.config.friction, "classic",
+                                  True).segment
+                ms = _replay_ms_per_step(torch, seg)
+                row.update({"device_ms_per_step_replays": ms,
+                            "wall_ms_per_step": wall_ms,
+                            "device_share_of_wall": ms / wall_ms,
+                            "device_ops_per_step": "not measured: the "
+                            "profiler does not trace WHILE bodies"})
+        out[mode] = row
+        sampler.system = system
     emit({"phase": "bpmf_segments", "steps": nstep_md,
           "segments_timed": BPMF_CANDIDATE_SEGMENTS, "states": n_states,
-          "default_stop": cs.graph_stop, **out})
-    for stop in ("while", "masked"):
-        sys_s = dataclasses.replace(system, constraints=dataclasses.replace(
-            cs, graph_stop=stop))
-        phase_segment_graph_check(
-            torch, "bpmf_path", sys_s, sampler.grids[0], sampler.states,
-            GRAPH_CHECK_CONSTRAINED_STEPS, BPMF_DT, sampler._temps)
-    sampler.system = system
+          "replays_timed": BPMF_REPLAYS, **out})
+    phase_segment_graph_check(
+        torch, "bpmf_path", system, sampler.grids[0], sampler.states,
+        GRAPH_CHECK_CONSTRAINED_STEPS, BPMF_DT, sampler._temps)
 
 
 # ----------------------------------------------------------------------
@@ -1969,14 +2016,17 @@ def phase_streamed_path(torch, seed, lig, lig_crd, files,
     B-spline regions holding the cloud plus halo plus 16 cells a side, one
     fused three-grid StreamSet with room for 1.5 packs, segments of 50
     steps; 100 warm-up steps, up to 2 drain rounds, ``n_steps`` timed
-    steps (STREAM_STEPS by default, cut from 1,000), and one profiled
-    short segment."""
+    steps (STREAM_STEPS by default, cut from 1,000) with the device
+    memory they held, the same steps from fresh engines with groups padded
+    to powers of two and at their own sizes, and one profiled short
+    segment."""
+    import contextlib
+    import unittest.mock
+
     from openmmgridforce_tpu_torch.grid import InterpolationMethod
     from openmmgridforce_tpu_torch.io.streaming import StreamedGridEvaluator
-    import contextlib
-
     from openmmgridforce_tpu_torch.mm import (MDState, StreamedBatchMD,
-                                              StreamSet, graphs,
+                                              StreamSet, graphs, streamed_md,
                                               system_from_amber)
     from openmmgridforce_tpu_torch.ops import gridgen
     from openmmgridforce_tpu_torch.parallel import (init_replica_states,
@@ -2017,14 +2067,61 @@ def phase_streamed_path(torch, seed, lig, lig_crd, files,
             break
         states = md.run(states, 300.0, STREAM_DRAIN_STEPS)
     torch.cuda.synchronize()
+    start = MDState(states.positions.clone(), states.velocities.clone(),
+                    torch.Generator(device="cuda"))
+    start.generator.set_state(states.generator.get_state())
     segments0 = md.segments
     recorded0 = dict(graphs.RECORDINGS)
+    torch.cuda.reset_peak_memory_stats()
+    reserved0 = torch.cuda.memory_reserved()
     t0 = time.perf_counter()
     states = md.run(states, 300.0, n_steps)
     torch.cuda.synchronize()
     t_run = time.perf_counter() - t0
     segments = md.segments - segments0
     recorded = {k: graphs.RECORDINGS[k] - recorded0[k] for k in recorded0}
+    memory = {"peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+              "reserved_gb": torch.cuda.memory_reserved() / 1e9,
+              "reserved_growth_gb": (torch.cuda.memory_reserved()
+                                     - reserved0) / 1e9,
+              "recordings_kept": len(md._graphs)}
+    # group sizes: the same timed steps from the same start and noise in
+    # fresh engines over the same evaluators, groups padded to powers of
+    # two (as shipped) and then recorded at their own sizes (whose run
+    # finds the region and tile caches warmer)
+    sizes, finals = {}, {}
+    for policy in ("padded", "exact"):
+        run_set = StreamSet(evs, scals,
+                            pack_budget_bytes=int(pack_bytes * 1.5))
+        run_md = StreamedBatchMD(sets=[run_set], system=system,
+                                 dt=STREAM_DT, friction=STREAM_FRICTION,
+                                 refresh_steps=STREAM_REFRESH)
+        gen_p = torch.Generator(device="cuda")
+        gen_p.set_state(start.generator.get_state())
+        recorded0 = dict(graphs.RECORDINGS)
+        ctx = (unittest.mock.patch.object(streamed_md, "_group_size",
+                                          lambda b, n_rep: b)
+               if policy == "exact" else contextlib.nullcontext())
+        with ctx:
+            t0 = time.perf_counter()
+            finals[policy] = run_md.run(
+                MDState(start.positions, start.velocities, gen_p), 300.0,
+                n_steps)
+            torch.cuda.synchronize()
+            t_p = time.perf_counter() - t0
+        sizes[policy] = {
+            "replica_steps_per_s": n_steps * STREAM_REPLICAS / t_p,
+            "timed_s": t_p, "segments": run_md.segments,
+            "recordings": {k: graphs.RECORDINGS[k] - recorded0[k]
+                           for k in recorded0},
+            "crossing_retries": run_md.crossing_retries,
+            "packs_built": run_set.packs_built,
+            "direct_builds": run_set.direct_builds}
+        del run_md, run_set
+        gc.collect()       # the engines' recordings hold their packs
+    dx_sizes, dv_sizes = _max_delta(torch, finals["padded"], finals["exact"])
+    sizes["max_abs_dx_nm"], sizes["max_abs_dv_nm_per_ps"] = dx_sizes, dv_sizes
+    del finals
     # windows of the same steps as graph replays and as eager launches,
     # from the final states under the same noise (the windows' states are
     # dropped; the engine's region state carries over)
@@ -2110,6 +2207,8 @@ def phase_streamed_path(torch, seed, lig, lig_crd, files,
           "segments": segments, "steps_per_s": n_steps / t_run,
           "replica_steps_per_s": n_steps * STREAM_REPLICAS / t_run,
           "recordings_in_timed_steps": recorded,
+          "device_memory": memory,
+          "group_sizes_fresh_engines": sizes,
           "window_steps": EAGER_STEPS,
           "graph_window": windows["graph"],
           "eager_window": windows["eager"],

@@ -16,11 +16,10 @@ sweep. Called eagerly on the card, a block is a CUDA graph, recorded once
 per constraint set and shape and replayed, and the host checks after
 every block (one synchronisation per block). Inside a recorded MD segment
 (``mm/graphs.py``) the stop moves onto the device, as JAX's
-``lax.while_loop`` has it, in one of two exact ways that the set's
-``graph_stop`` selects: "while", blocks in a conditional WHILE node of the
-graph until no replica is active; "masked", every one of the ``max_iter``
-sweeps, masked. Each call adds its sweep counts to the function's
-``stats`` (``apply_shake.stats``, ``apply_rattle.stats``), on the device.
+``lax.while_loop`` has it: blocks run in a conditional WHILE node of the
+graph until no replica is active. Each call adds its sweep counts to the
+function's ``stats`` (``apply_shake.stats``, ``apply_rattle.stats``), on
+the device.
 """
 
 from __future__ import annotations
@@ -31,7 +30,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..ops.scatter import add_rows
+from ..ops.scatter import add_rows, row_sum_plan
 from . import graphs
 
 # sweeps between two host checks of the stopping rule
@@ -43,9 +42,6 @@ class ConstraintSet:
     idx: torch.Tensor        # [C, 2] int64 atom pairs
     length: torch.Tensor     # [C] target distances (nm)
     inv_mass: torch.Tensor   # [N] 1/mass
-    # how a recorded segment stops the sweeps on the device: "while" or
-    # "masked" (module docstring)
-    graph_stop: str = "while"
 
     @property
     def num_constraints(self) -> int:
@@ -152,21 +148,14 @@ class _Relaxation:
             self.sweeps.add_(self.active)
             self.active.logical_and_(err > self.threshold)
 
-    def run_device(self, max_iter: int, stop: str):
-        """The sweeps with the stop on the device, for a recorded segment.
-        "while": blocks of CHECK_EVERY sweeps in a conditional WHILE node
-        while a replica is active and a whole block fits in ``max_iter``,
-        then the rest of ``max_iter`` masked; "masked": all ``max_iter``
-        sweeps, masked. Every replica stops at its own sweep either way.
+    def run_device(self, max_iter: int):
+        """The sweeps with the stop on the device, for a recorded segment:
+        blocks of CHECK_EVERY sweeps in a conditional WHILE node while a
+        replica is active and a whole block fits in ``max_iter``, then the
+        rest of ``max_iter`` masked. Every replica stops at its own sweep.
         Returns the sweeps the batch ran, a 0-d tensor."""
-        if stop not in ("while", "masked"):
-            raise ValueError(f"unknown graph_stop {stop!r}")
         self.active.fill_(True)
         self.sweeps.zero_()
-        if stop == "masked":
-            self.block(max_iter)
-            return torch.full((), max_iter, dtype=torch.int64,
-                              device=self.state.device)
         n_full = max_iter // CHECK_EVERY
         blocks = torch.zeros((), dtype=torch.int64, device=self.state.device)
         if n_full:
@@ -224,14 +213,14 @@ def _relax(sweep, cs, bufs, inputs, state, max_iter, threshold, omega):
     """Sweep a copy of ``state`` [..., N, 3]; ``bufs`` are the tensors of
     the constraint set, ``inputs`` those of this call. Returns (state,
     sweeps [...], sweeps the batch ran). Inside a recorded segment the
-    sweeps stop on the device (``cs.graph_stop``). Otherwise, on a CUDA
+    sweeps stop on the device (``run_device``). Otherwise, on a CUDA
     device, they run as replays of a graph recorded once per constraint
     set, shape, dtype, device, threshold and omega, over buffers this
     call's values are copied into."""
     if not state.is_cuda or graphs.recording():
         r = _Relaxation(sweep, {**bufs, **inputs}, state.clone(), threshold,
                         omega)
-        executed = (r.run_device(max_iter, cs.graph_stop) if state.is_cuda
+        executed = (r.run_device(max_iter) if state.is_cuda
                     else r.run(max_iter))
         return r.state, r.sweeps, executed
     key = (sweep, id(cs), tuple(state.shape), state.dtype, state.device,
@@ -258,15 +247,19 @@ def _relax(sweep, cs, bufs, inputs, state, max_iter, threshold, omega):
 def _pair_tensors(cs: ConstraintSet):
     """The tensors every sweep reads: both atoms of each pair in one index
     (first atoms, then second atoms), the pairs' inverse masses, and the
-    scatter's factors -1/m_i and +1/m_j [2, C, 1]."""
+    row sum that applies a pair's update to its atoms weighted -1/m_i and
+    +1/m_j (``ops/scatter.py``)."""
     i, j = cs.idx[:, 0], cs.idx[:, 1]
     im_i = cs.inv_mass[i][:, None]
     im_j = cs.inv_mass[j][:, None]
     zero = torch.zeros((), dtype=cs.inv_mass.dtype,
                        device=cs.inv_mass.device)
-    return {"idx": torch.cat([i, j]), "im_i": im_i, "im_j": im_j,
-            "coef": torch.stack([-im_i, im_j]), "zero": zero,
-            "keys": (cs.idx,)}
+    idx = torch.cat([i, j])
+    plan = row_sum_plan(idx, cs.inv_mass.shape[0], (cs.idx,),
+                        coef=torch.cat([-im_i, im_j])[:, 0],
+                        src_rows=cs.num_constraints)
+    return {"idx": idx, "im_i": im_i, "im_j": im_j, "plan": plan,
+            "zero": zero}
 
 
 def _pair_diff(b, x):
@@ -279,10 +272,9 @@ def _pair_diff(b, x):
 def _scatter_(b, x, update):
     """Apply ``update`` [..., C, 3] to both atoms of every pair of x, in
     place, weighted -1/m_i and +1/m_j (the JAX package's two ``.at[].add``
-    in one row sum, ``ops/scatter.py``: an atom in several constraints
-    receives every contribution)."""
-    src = (update.unsqueeze(-3) * b["coef"]).flatten(-3, -2)
-    add_rows(x, b["idx"], src, b["keys"])
+    in one row sum: an atom in several constraints receives every
+    contribution)."""
+    add_rows(x, b["plan"], update)
 
 
 def _shake_sweep(b, x, active, omega):

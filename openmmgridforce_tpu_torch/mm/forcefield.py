@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.scatter import add_rows
+from ..ops.scatter import row_sum, row_sum_plan
 
 
 def _at(x, col):
@@ -86,7 +86,9 @@ def assemble_forces(positions, atom_ids, contribs, keys):
     """forces[..., n, :] = sum of contribs[..., k, :] with atom_ids[k] == n.
     ``keys``: the persistent tensors ``atom_ids`` is made from, which key
     its fixed order on the card (``ops/scatter.py``)."""
-    return add_rows(torch.zeros_like(positions), atom_ids, contribs, keys)
+    plan = row_sum_plan(atom_ids, positions.shape[-2], keys,
+                        dtype=contribs.dtype)
+    return row_sum(plan, contribs)
 
 
 def _bond_contribs(positions, idx, k, r0):

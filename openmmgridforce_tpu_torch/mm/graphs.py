@@ -23,6 +23,7 @@ import contextlib
 import contextvars
 import ctypes
 import functools
+import gc
 import inspect
 import time
 import weakref
@@ -47,6 +48,9 @@ RECORDINGS = {"count": 0, "seconds": 0.0}
 # is destroyed, so they are kept
 _FAILED = []
 
+# recorded blocks that hold conditional WHILE nodes
+_WHILE_BLOCKS = weakref.WeakSet()
+
 
 def recording() -> bool:
     """Whether a segment block is being recorded (warmed up or captured):
@@ -57,6 +61,14 @@ def recording() -> bool:
 def warming_up() -> bool:
     """Whether a segment block is running once before its capture."""
     return isinstance(_RECORDING.get(), str)
+
+
+def while_recordings() -> int:
+    """How many recorded blocks that hold conditional WHILE nodes are
+    alive (``utils.capture_trace`` refuses to trace the card while any
+    is: PERF.md)."""
+    gc.collect()
+    return sum(1 for blk in _WHILE_BLOCKS if blk.graph is not None)
 
 
 @contextlib.contextmanager
@@ -123,6 +135,7 @@ def _while_node(body):
     from the block's pool of while bodies; the flag ``body`` returns is
     written into the node's handle at the end of every pass."""
     block = _RECORDING.get()
+    _WHILE_BLOCKS.add(block)
     lib = _while_lib()
     stream = torch.cuda.current_stream()
     device = stream.device
@@ -168,12 +181,14 @@ def while_loop(body):
 # ----------------------------------------------------------------------
 
 class _Block:
-    """``length`` steps of ``advance`` over the segment's static buffers;
+    """``length`` steps of a segment's ``advance`` over its static buffers;
     ``play`` replays the recording on the card, calls the function on the
-    CPU."""
+    CPU. The segment is passed in, not held: a block and its segment form
+    no reference cycle, so a dropped segment frees its recordings, and
+    the payloads its step reads, at once."""
 
-    def __init__(self, seg, length):
-        self.seg, self.length = seg, length
+    def __init__(self, length):
+        self.length = length
         self.graph = None
         self._body_pool = None
 
@@ -192,8 +207,7 @@ class _Block:
             fin.atexit = False
         return self._body_pool
 
-    def body(self, steps=None):
-        seg = self.seg
+    def body(self, seg, steps=None):
         carry = seg.carry
         for u in range(self.length if steps is None else steps):
             carry = seg.advance(carry, None if seg.noise is None
@@ -204,18 +218,18 @@ class _Block:
             if new is not buf:
                 buf.copy_(new)
 
-    def record(self):
+    def record(self, seg):
         """Run one step of the block as it is (which loads every kernel the
         block launches and fills the caches its steps read), then capture
         the block on a side stream."""
         t0 = time.perf_counter()
         token = _RECORDING.set("warmup")
         try:
-            self.body(steps=1)
+            self.body(seg, steps=1)
         finally:
             _RECORDING.reset(token)
         graph = torch.cuda.CUDAGraph()
-        for gen in self.seg.generators:
+        for gen in seg.generators:
             graph.register_generator_state(gen)
         stream = torch.cuda.Stream()
         stream.wait_stream(torch.cuda.current_stream())
@@ -224,7 +238,7 @@ class _Block:
             with torch.cuda.stream(stream):
                 graph.capture_begin()
                 try:
-                    self.body()
+                    self.body(seg)
                 except BaseException:
                     _FAILED.append(graph)
                     try:
@@ -240,11 +254,11 @@ class _Block:
         RECORDINGS["count"] += 1
         RECORDINGS["seconds"] += time.perf_counter() - t0
 
-    def play(self):
+    def play(self, seg):
         if self.graph is not None and not _EAGER.get():
             self.graph.replay()
         else:
-            self.body()
+            self.body(seg)
 
 
 class Segment:
@@ -283,10 +297,10 @@ class Segment:
     def _block(self, length):
         blk = self._blocks.get(length)
         if blk is None:
-            blk = self._blocks[length] = _Block(self, length)
+            blk = self._blocks[length] = _Block(length)
         if self.on_card and blk.graph is None and not _EAGER.get():
             with torch.cuda.device(self.carry[0].device):
-                blk.record()
+                blk.record(self)
         return blk
 
     def lengths(self, n_steps):
@@ -321,7 +335,7 @@ class Segment:
                     self.noise[:n].normal_(generator=generator)
                 else:
                     self.noise[:n].copy_(noise[done:done + n])
-            self._block(n).play()
+            self._block(n).play(self)
             if on_block is not None:
                 on_block(done, n, self.frames)
             done += n

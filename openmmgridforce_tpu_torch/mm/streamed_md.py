@@ -55,6 +55,23 @@ from .system import System, energy_and_forces
 _GROUP_GRAPHS = 8
 
 
+def _group_size(b: int, n_rep: int) -> int:
+    """The batch a group of ``b`` of ``n_rep`` replicas is recorded at: the
+    next power of two, at most ``n_rep``, so that a payload needs a few
+    recordings, not one per group size."""
+    return min(1 << (b - 1).bit_length(), n_rep)
+
+
+def _pad_rows(t, size, dim=0):
+    """``t`` with copies of its first row along ``dim`` up to ``size``."""
+    extra = size - t.shape[dim]
+    if extra <= 0:
+        return t
+    first = t.narrow(dim, 0, 1)
+    return torch.cat([t, first.expand(*(extra if d == dim else -1
+                                        for d in range(t.dim())))], dim=dim)
+
+
 def _cloud_bounds(positions, full_lo, full_hi):
     """Bbox of the in-grid atoms of [..., N, 3] positions: ([..., 3],
     [..., 3]). An all-outside cloud yields +-inf bounds, so ``any_in``
@@ -188,10 +205,14 @@ class StreamSet:
         return self._tensors[key]
 
     def resident_payloads(self):
-        """Identities of the payloads this set holds on the device."""
+        """Identities of what this set's payloads are made of that is held
+        on the device: its fused packs and its evaluators' region grids
+        (region LRU and full grid)."""
         live = {id(v[0]) for v in self._packed.values()}
-        if self._full_pay is not None:
-            live.add(id(self._full_pay[0]))
+        for ev in self.evaluators:
+            live |= {id(v[0]) for v in ev._regions.values()}
+            if ev._full_region is not None:
+                live.add(id(ev._full_region[0]))
         return live
 
     def _interior(self, start):
@@ -470,31 +491,35 @@ def _default_step_factory(dt, friction, scheme):
     return factory
 
 
-def _payload_key(payload):
+def _payload_ids(payload):
     """A payload's identity: a fused pack's, or its region Grids' for the
     direct stencil."""
     if isinstance(payload, tuple):
         return tuple(id(g) for g in payload)
-    return id(payload)
+    return (id(payload),)
 
 
 class _GroupSegment:
     """One group's steps over static buffers: the carry (positions,
     velocities, and each set's last and running in-grid bbox), the group's
     temperatures [B, 1, 1], and the payloads and base arguments it reads
-    (held, so that no other object takes their identities)."""
+    (held, so that no other object takes their identities). Its closures
+    do not refer to it: a dropped group segment frees its recordings and
+    payloads at once, not at the next garbage collection."""
 
     def __init__(self, md, states, carry, base_args, payloads, scals, boxes,
                  gathers, noisy):
         x = states.positions
-        self.payloads, self.base_args = list(payloads), base_args
+        payloads = self.payloads = list(payloads)
+        self.base_args = base_args
         self.temperature = torch.zeros((x.shape[0], 1, 1), dtype=x.dtype,
                                        device=x.device)
         ks = [s.oob_k for s in md.sets]
+        base_force = md.base_force
 
         def force_fn(pos):
-            f = md.base_force(base_args, pos)
-            for pay, sc, box, k, g in zip(self.payloads, scals, boxes, ks,
+            f = base_force(base_args, pos)
+            for pay, sc, box, k, g in zip(payloads, scals, boxes, ks,
                                           gathers):
                 f = f + _set_forces(pos, pay, sc, box, k, g)
             return f
@@ -569,9 +594,9 @@ class StreamedBatchMD:
     before (a retry then draws afresh).
 
     On the card each group's segment replays CUDA graphs of its steps
-    (``mm/graphs.py``), recorded once per payload and group size and kept
-    while the payloads stay resident; only the [R, S, 12] bounds of a
-    segment are downloaded.
+    (``mm/graphs.py``), recorded once per payload and group size (groups
+    padded to the next power of two) and kept while the payloads stay
+    resident; only the [R, S, 12] bounds of a segment are downloaded.
     """
 
     def __init__(self, evaluators=None, scalings=None, system: System = None,
@@ -616,23 +641,39 @@ class StreamedBatchMD:
         return self._takes_noise
 
     def _prune_graphs(self):
-        """Drop recorded group segments whose fused packs left the pack
-        LRU: the recordings held them on the device."""
+        """Drop recorded group segments whose payloads left the device
+        caches: fused packs the pack LRU dropped, raw region grids the
+        evaluators' region LRUs dropped. A recording holds its payloads, so
+        the device memory of those it keeps stays within the caches'
+        budgets."""
         live = set()
         for s in self.sets:
             live |= s.resident_payloads()
         for key, grp in list(self._graphs.items()):
-            if any(not isinstance(p, tuple) and id(p) not in live
+            if any(not live.issuperset(_payload_ids(p))
                    for p in grp.payloads):
                 del self._graphs[key]
 
     def _run_group(self, states, base_args, payloads, temps, n_steps,
-                   noise):
+                   noise, n_rep=None):
         """One group's segment: ``n_steps`` steps of the replicas
         ``states`` ([B, N, 3]) on their payloads, carrying each set's
         running in-grid bbox; ``noise`` [n_steps, B, N, 3] or None.
         Returns (states, bounds [B, S, 12]). On the card the steps are
-        graph replays, recorded once per payload and group size."""
+        graph replays, recorded once per payload and group size, the group
+        padded with copies of its first replica (and of its noise) to the
+        next power of two up to ``n_rep`` (``_group_size``); the copies'
+        steps are dropped."""
+        b = states.positions.shape[0]
+        if _recorded(states):
+            size = _group_size(b, b if n_rep is None else n_rep)
+            if size > b:
+                states = MDState(_pad_rows(states.positions, size),
+                                 _pad_rows(states.velocities, size),
+                                 states.generator)
+                temps = np.concatenate([temps, np.repeat(temps[:1],
+                                                         size - b)])
+                noise = None if noise is None else _pad_rows(noise, size, 1)
         x = states.positions
         dtype, device = x.dtype, x.device
         scals, boxes = zip(*(s.device_tensors(dtype, device)
@@ -646,7 +687,7 @@ class StreamedBatchMD:
         args = (self, states, carry, base_args, payloads, scals, boxes,
                 gathers, noisy)
         if _recorded(states):
-            key = (tuple(_payload_key(p) for p in payloads),
+            key = (tuple(_payload_ids(p) for p in payloads),
                    tuple(x.shape), dtype, device, id(base_args), noisy)
             grp = self._graphs.pop(key, None) or _GroupSegment(*args)
             self._graphs[key] = grp
@@ -659,9 +700,9 @@ class StreamedBatchMD:
             device=device)[:, None, None])
         out = grp.segment.run(carry, n_steps, noise=noise,
                               generator=states.generator)
-        per_set = [torch.cat(out[2 + 4 * si:6 + 4 * si], dim=-1)
+        per_set = [torch.cat(out[2 + 4 * si:6 + 4 * si], dim=-1)[:b]
                    for si in range(len(self.sets))]
-        return (MDState(out[0], out[1], states.generator),
+        return (MDState(out[0][:b], out[1][:b], states.generator),
                 torch.stack(per_set, dim=1))
 
     def run(self, states: MDState, temperatures, n_steps: int,
@@ -781,7 +822,7 @@ class StreamedBatchMD:
                 out, b = self._run_group(
                     MDState(x[sel], v[sel], gen), base_args, payloads,
                     temps[idx], k,
-                    None if noise is None else noise[:, sel])
+                    None if noise is None else noise[:, sel], n_rep)
                 new_x[sel], new_v[sel] = out.positions, out.velocities
                 bset[idx] = b.cpu().numpy()
                 perm.append(idx)

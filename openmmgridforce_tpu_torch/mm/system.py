@@ -214,12 +214,13 @@ class _MDSegment:
                  batched):
         x = states.positions
         shape = (x.shape[0], 1, 1) if batched else ()
-        self.system, self.grids = system, list(grids)
+        grids = self.grids = list(grids)
+        self.system = system
         self.temperature = torch.zeros(shape, dtype=x.dtype,
                                        device=x.device)
 
         def force_fn(pos):
-            return energy_and_forces(system, self.grids, pos)[1]
+            return energy_and_forces(system, grids, pos)[1]
 
         step = make_langevin_step(force_fn, system.masses, dt, friction,
                                   self.temperature, scheme=scheme,

@@ -10,6 +10,7 @@ from __future__ import annotations
 import contextlib
 import os
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -25,10 +26,24 @@ def trace(name: str):
 @contextlib.contextmanager
 def capture_trace(log_dir: str):
     """Profile the host and, where there is one, the CUDA card, and write
-    a Chrome trace to ``log_dir/trace.json``. Yields the profiler."""
+    a Chrome trace to ``log_dir/trace.json``. Yields the profiler.
+
+    While recorded segments with conditional WHILE nodes (constrained MD
+    on the card, ``mm/graphs.py``) are alive, the card is not traced and
+    a warning says so: the profiler sees one pass of a WHILE body per
+    launch of a recording made before the session, and a session over
+    such replays has ended the process with a segmentation fault
+    (PERF.md)."""
+    from ..mm import graphs
+
     acts = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
+        if graphs.while_recordings():
+            warnings.warn("capture_trace: recorded segments with WHILE "
+                          "nodes are alive; tracing the host only",
+                          RuntimeWarning, stacklevel=3)
+        else:
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
     with torch.profiler.profile(activities=acts) as prof:
         yield prof

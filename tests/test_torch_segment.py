@@ -243,11 +243,10 @@ def test_system_without_nonbonded_matches_jax(constrained):
                                atol=1e-10)
 
 
-@pytest.mark.parametrize("stop", ["while", "masked"])
-def test_device_stop_equals_the_host_check(constrained, stop):
+def test_device_stop_equals_the_host_check(constrained):
     """The sweeps a recorded segment runs (a device-side stop: blocks while
-    a replica is active, or every sweep masked) give the host-checked
-    relaxation's positions and per-replica sweeps, bit for bit."""
+    a replica is active) give the host-checked relaxation's positions,
+    per-replica sweeps and executed sweeps, bit for bit."""
     _, _, ts, jstates = constrained
     cs = ts.constraints
     x_ref = torch.from_numpy(np.asarray(jstates.positions))
@@ -264,11 +263,10 @@ def test_device_stop_equals_the_host_check(constrained, stop):
         executed = host.run(max_iter)
         dev = constraints._Relaxation(constraints._shake_sweep, b,
                                       x_new.clone(), 2e-5, 1.0)
-        dev_executed = dev.run_device(max_iter, stop)
+        dev_executed = dev.run_device(max_iter)
         assert torch.equal(host.state, dev.state)
         assert torch.equal(host.sweeps, dev.sweeps)
-        assert int(dev_executed) == (max_iter if stop == "masked"
-                                     else executed)
+        assert int(dev_executed) == executed
 
 
 # ----------------------------------------------------------------------
@@ -378,8 +376,8 @@ def test_streamed_step_without_noise_still_runs(streamed):
 
 
 def test_fixed_order_row_sums_equal_index_add(constrained):
-    """The card's row sums (a gather through a per-atom table, one sum)
-    give index_add_'s result, and the table is made once per key."""
+    """The card's row sums (a gather through a per-atom table, a weighted
+    sum) give index_add_'s result, and the table is made once per key."""
     from openmmgridforce_tpu_torch.ops import scatter
 
     _, _, ts, jstates = constrained
@@ -389,11 +387,195 @@ def test_fixed_order_row_sums_equal_index_add(constrained):
     src = torch.from_numpy(rng.standard_normal((3, len(idx), 3)))
     x = torch.from_numpy(np.asarray(jstates.positions))
     keys = (ts.bond_idx, ts.angle_idx)
-    got = scatter.gather_sum(x.clone(), idx, src, keys)
+    plan = scatter.fixed_order_plan(idx, x.shape[-2], keys,
+                                    dtype=torch.float64)
+    got = scatter.add_rows(x.clone(), plan, src)
     want = x.clone().index_add_(-2, idx, src)
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=1e-13)
-    table = scatter.row_table(idx, x.shape[-2], keys)
-    assert scatter.row_table(idx[:1], x.shape[-2], keys) is table
+    cpu = scatter.row_sum_plan(idx, x.shape[-2], keys)
+    assert cpu.sel is None
+    assert torch.equal(scatter.add_rows(x.clone(), cpu, src), want)
+    again = scatter.fixed_order_plan(idx[:len(idx)], x.shape[-2], keys,
+                                     dtype=torch.float64)
+    assert again.sel is plan.sel and again.weight is plan.weight
+    table = scatter.row_table(idx, x.shape[-2])
     counts = np.bincount(idx.numpy(), minlength=x.shape[-2])
     assert table.shape == (x.shape[-2], counts.max())
     assert int((table < len(idx)).sum()) == len(idx)
+
+
+def test_fixed_order_row_sums_with_factors(constrained):
+    """The constraint solver's form: C pair updates applied to both atoms
+    of every pair, weighted -1/m_i and +1/m_j, equal the index_add_ of the
+    explicit rows; padding slots add exactly nothing."""
+    from openmmgridforce_tpu_torch.ops import scatter
+
+    _, _, ts, jstates = constrained
+    cs = ts.constraints
+    idx = torch.cat([cs.idx[:, 0], cs.idx[:, 1]])
+    coef = torch.cat([-cs.inv_mass[cs.idx[:, 0]], cs.inv_mass[cs.idx[:, 1]]])
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(np.asarray(jstates.positions))
+    update = torch.from_numpy(rng.standard_normal(
+        (x.shape[0], cs.num_constraints, 3)))
+    explicit = torch.cat([update, update], dim=-2) * coef[:, None]
+    want = x.clone().index_add_(-2, idx, explicit)
+    for plan in (scatter.fixed_order_plan(idx, x.shape[-2], (cs.idx,),
+                                          coef=coef,
+                                          src_rows=cs.num_constraints),
+                 scatter.row_sum_plan(idx, x.shape[-2], (cs.idx,),
+                                      coef=coef,
+                                      src_rows=cs.num_constraints)):
+        got = scatter.add_rows(x.clone(), plan, update)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                                   atol=1e-13)
+    # an atom in no constraint keeps its position bit for bit
+    free = np.setdiff1d(np.arange(x.shape[-2]), idx.numpy())
+    assert free.size
+    assert torch.equal(got[:, free], x[:, free])
+
+
+def test_streamed_recorded_groups_pad_to_size_buckets(streamed, recorded):
+    """Recorded group segments run at the next power of two of the group
+    size, the group padded with copies of its first replica: three
+    replicas sharing a region are recorded as four, and every replica
+    follows the trajectory of the plain run, to 1e-10."""
+    offsets = OFFSETS[[0, 0, 0, 3, 3]]
+    vel = np.zeros((len(offsets),) + streamed["x"].shape)
+    vel[:, :, 1] = np.linspace(-1.0, 1.0, len(offsets))[:, None]
+
+    def run():
+        evs = [streaming.StreamedGridEvaluator(
+            p, InterpolationMethod.BSPLINE, region_shape=NARROW,
+            dtype=torch.float64, device="cpu") for p in streamed["paths"]]
+        md = streamed_md.StreamedBatchMD(evs, streamed["scals"],
+                                         streamed["ts"], dt=0.0005,
+                                         friction=5.0, refresh_steps=20)
+        pos = np.stack([streamed["x"] + off for off in offsets])
+        states = convert.states_from_arrays(pos, vel, seed=7, device="cpu")
+        return md.run(states, 300.0, 40), md
+
+    got, md = run()
+    sizes = sorted({key[1][0] for key in md._graphs})
+    assert sizes == [2, 4] and md.crossing_retries == 0
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(streamed_md, "_recorded", lambda state: False)
+        ref, _ = run()
+    np.testing.assert_allclose(got.positions.numpy(),
+                               ref.positions.numpy(), rtol=0, atol=1e-10)
+    np.testing.assert_allclose(got.velocities.numpy(),
+                               ref.velocities.numpy(), rtol=0, atol=1e-8)
+    assert streamed_md._group_size(1, 100) == 1
+    assert streamed_md._group_size(33, 100) == 64
+    assert streamed_md._group_size(70, 100) == 100
+
+
+def test_streamed_recordings_hold_only_resident_payloads(streamed,
+                                                         recorded):
+    """Direct-stencil payloads (no pack budget) are region grids of the
+    evaluators' region LRUs: a recording whose grids left an LRU is
+    dropped after the segment, so recordings hold no region the caches
+    no longer count."""
+    evs = [streaming.StreamedGridEvaluator(
+        p, InterpolationMethod.BSPLINE, region_shape=NARROW,
+        dtype=torch.float64, device="cpu") for p in streamed["paths"]]
+    for ev in evs:
+        ev.device_regions = 2
+    sset = streamed_md.StreamSet(evs, streamed["scals"], pack_budget_bytes=0)
+    md = streamed_md.StreamedBatchMD(sets=[sset], system=streamed["ts"],
+                                     dt=0.0005, friction=5.0,
+                                     refresh_steps=20)
+    pos = np.stack([streamed["x"] + off for off in OFFSETS])
+    states = convert.states_from_arrays(pos, np.zeros_like(pos), seed=3,
+                                        device="cpu")
+    out = md.run(states, 300.0, 20)
+    assert torch.isfinite(out.positions).all()
+    assert sset.direct_builds >= len(OFFSETS) and sset.packs_built == 0
+    live = sset.resident_payloads()
+    assert 0 < len(md._graphs) <= 2
+    for grp in md._graphs.values():
+        for pay in grp.payloads:
+            assert isinstance(pay, tuple)
+            assert live.issuperset(streamed_md._payload_ids(pay))
+
+
+def test_constraints_through_fixed_order_sums(constrained, monkeypatch):
+    """SHAKE and RATTLE with the card's fixed-order row sums (run here on
+    the CPU) against index_add_'s: the same positions and velocities to
+    1e-12 and the same sweeps per replica."""
+    from openmmgridforce_tpu_torch.ops import scatter
+
+    _, _, ts, jstates = constrained
+    cs = ts.constraints
+    x_ref = torch.from_numpy(np.asarray(jstates.positions))
+    rng = np.random.default_rng(6)
+    x_new = x_ref + torch.from_numpy(rng.normal(0.0, 0.004, x_ref.shape))
+    v = torch.from_numpy(rng.standard_normal(x_ref.shape))
+    out = {}
+    for form in ("index_add", "fixed_order"):
+        if form == "fixed_order":
+            monkeypatch.setattr(constraints, "row_sum_plan",
+                                scatter.fixed_order_plan)
+        xs, ns = constraints.apply_shake(cs, x_ref, x_new)
+        vs, nr = constraints.apply_rattle(cs, xs, v)
+        out[form] = (xs, ns, vs, nr)
+    (xa, na, va, ra), (xb, nb, vb, rb) = out["index_add"], out["fixed_order"]
+    np.testing.assert_allclose(xb.numpy(), xa.numpy(), rtol=0, atol=1e-12)
+    np.testing.assert_allclose(vb.numpy(), va.numpy(), rtol=0, atol=1e-12)
+    assert torch.equal(na, nb) and torch.equal(ra, rb)
+
+
+def test_capture_trace_leaves_the_card_while_while_recordings_live(
+        tmp_path, monkeypatch):
+    """While a recorded block with a WHILE node is alive, capture_trace
+    warns and traces the host only; with none it would trace the card."""
+    from openmmgridforce_tpu_torch.utils import observe
+
+    class Block:
+        graph = object()
+
+    acts = []
+    real = torch.profiler.profile
+
+    def profile(activities, **kw):
+        acts.append(list(activities))
+        return real(activities=[torch.profiler.ProfilerActivity.CPU], **kw)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.profiler, "profile", profile)
+    blk = Block()
+    graphs._WHILE_BLOCKS.add(blk)
+    try:
+        assert graphs.while_recordings() == 1
+        with pytest.warns(RuntimeWarning, match="WHILE"):
+            with observe.capture_trace(str(tmp_path / "a")):
+                torch.ones(3).sum()
+    finally:
+        graphs._WHILE_BLOCKS.discard(blk)
+    assert graphs.while_recordings() == 0
+    with observe.capture_trace(str(tmp_path / "b")):
+        torch.ones(3).sum()
+    cpu, cuda = (torch.profiler.ProfilerActivity.CPU,
+                 torch.profiler.ProfilerActivity.CUDA)
+    assert acts == [[cpu], [cpu, cuda]]
+    assert (tmp_path / "a" / "trace.json").exists()
+
+
+def test_dropped_recordings_free_at_once(streamed, recorded):
+    """A recorded group segment dropped by the engine frees its recording,
+    static buffers and payloads at once, not at the next garbage
+    collection: nothing it holds refers back to it."""
+    import gc
+    import weakref
+
+    md = _stream_run(streamed, NARROW, np.zeros(
+        (len(OFFSETS),) + streamed["x"].shape), n_steps=8)[1]
+    assert md._graphs
+    refs = [weakref.ref(obj) for grp in md._graphs.values()
+            for obj in (grp, grp.segment, grp.temperature)]
+    gc.disable()
+    try:
+        md._graphs.clear()
+        assert all(r() is None for r in refs)
+    finally:
+        gc.enable()
