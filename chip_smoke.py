@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """End-to-end check of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives the port's three paths (openmmgridforce_tpu_torch) at full width.
+Drives the port's paths (openmmgridforce_tpu_torch) at full width.
 Two are a 1000-step classic-Langevin segment of 1000 ligand replicas on
 three fused receptor grids: the value path (grids from the hand-written
 values kernel, cubic B-spline packs) and the derivative path (grids with
@@ -10,7 +10,12 @@ rules, triquintic Chebyshev packs, Hermite-row packs beside them). The
 third is the BPMF sampler (bpmf_path): value grids packed slab by slab
 into one fused table, an HBonds-constrained 21-state 300-600 K ladder at
 2 fs, equilibration in drain rounds, then trials of replica-exchange
-sweeps, genetic-MC sweeps and MD segments, at cut depth. Then the
+sweeps, genetic-MC sweeps and MD segments, at cut depth. api_path runs
+the compat API (openmmgridforce_tpu_torch.api) on the same complex in
+float64: grids auto-generated through Contexts on the receptor system
+(float64 values and derivatives, a tiled file), the ligand's getState on
+the card against a host Context, Langevin steps recorded and eager,
+minimizeEnergy, and a streamed Context on the tiled files. Then the
 out-of-core path: float64 generation through the kernels' float64
 instantiations, grids generated tile by tile into OMGTILE files (the bench
 box, and the reference's 520 x 695 x 578-point stress box, three 0.84 GB
@@ -28,7 +33,7 @@ noise (the constrained ladder with its sweeps stopped on the device by a
 WHILE node, and a failed capture must raise). twofloat_check and
 semantics_check run the double-float32 tier and the alternate kernel
 semantics on the card against float64 on the host. Every
-phase prints one JSON line; the last line is {"ok": true, "device": {...}}.
+phase prints a JSON line; the last line is {"ok": true, "device": {...}}.
 Any failed gate raises and the script exits non-zero. Without a CUDA device
 it exits non-zero and prints no result.
 
@@ -40,6 +45,7 @@ Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import faulthandler
 import gc
@@ -84,6 +90,19 @@ H100_MUFU_PER_S = H100_FP32_FLOPS / 16
 # kernel tiled z, was 12 / 16 / 15.)
 GRIDGEN_OPS_PER_PAIR = {"charge": 7, "ljr": 10, "lja": 9}
 GRIDGEN_OPS_PER_COLUMN_ATOM = 5
+# FP64 operations a pair of the float64 values kernel needs: the count
+# above with the rsqrt (charge) or the reciprocal (ljr, lja) carried to
+# double precision in place of its one operation. FP64 has no
+# special-function pipe: a MUFU.RSQ64H / MUFU.RCP64H gives a seed of about
+# 23 bits from the high word (on the MUFU pipe, not counted), and the
+# fewest FP64 operations (an FMA two) that finish it are, for the double
+# rsqrt, one third-order Newton step: t = x y, e = 1 - t y,
+# p = 1/2 + 3/8 e, y + (e y) p, a multiply, two FMAs, a multiply and an
+# FMA, 8 operations (the seed's 2^-23 cubed is below 2^-53); for the
+# correctly rounded reciprocal (__drcp_rn), a cubic step e = 1 - x y,
+# e = e + e e, y = y + y e and a rounding step r = 1 - x y, y = y + y r,
+# five FMAs, 10 operations. So 7 - 1 + 8, 10 - 1 + 10 and 9 - 1 + 10.
+GRIDGEN_F64_OPS_PER_PAIR = {"charge": 14, "ljr": 19, "lja": 18}
 # FP32 operations per pair that the derivative kernel's function needs,
 # every multiply, add, subtract and max counted once (an FMA is two), with
 # the work shared: 3 for the displacement, 6 for the clamped r^2, 0 / 4 / 3
@@ -176,6 +195,15 @@ GRAPH_GATE = 1e-6
 # atomic row sums) and eagerly; block replays timed back to back
 BPMF_CANDIDATE_SEGMENTS = 2
 BPMF_REPLAYS = 25
+# api_path: the compat API at the BPMF complex's width (float64, as the
+# JAX package's Context): Langevin at 300 K, friction 1/ps, 2 fs, HBonds,
+# with T_inst sampled every API_CHUNK steps; minimizeEnergy(150, 20.0) as
+# tests/test_api.py; Verlet steps of a streamed Context
+API_STEPS = 1000
+API_CHUNK = 20
+API_MIN_ITERATIONS = 150
+API_MIN_TOLERANCE = 20.0
+API_STREAM_STEPS = 200
 # semantics_check / twofloat_check: the accuracy tier on the card
 TWOFLOAT_N = 1 << 20
 COMPENSATED_GATE = 2e-6      # tests/test_compensated.py's rtol
@@ -383,6 +411,15 @@ def grid_box(lig_crd):
 # Phases
 # ----------------------------------------------------------------------
 
+def _host_seconds(fn, reps):
+    """Host seconds per call of ``fn``, which ends in a download."""
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) / reps
+
+
 def _cuda_ms(torch, fn, reps):
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -474,7 +511,9 @@ def _launch_facts(name, module, counts, grid_type, sm_count, f64=False):
             "waves": shape["blocks"] / (shape["blocks_per_sm"] * sm_count)}
 
 
-_SASS_KINDS = ("FFMA", "FMUL", "FADD", "MUFU", "LDS")
+_SASS_KINDS = ("FFMA", "FMUL", "FADD", "MUFU", "LDS", "DFMA", "DMUL", "DADD")
+# instructions of the FP64 pipe: arithmetic, compares and min/max
+_SASS_FP64 = ("DFMA", "DMUL", "DADD", "DSETP", "DMNMX")
 
 
 def inner_loop_counts(sass_text):
@@ -510,10 +549,15 @@ def inner_loop_counts(sass_text):
         for op in ops:
             if op.split(".")[0] not in _SASS_KINDS:
                 other[op.split(".")[0]] = other.get(op.split(".")[0], 0) + 1
+        fp64 = sum(op.split(".")[0] in _SASS_FP64 for op in ops)
+        # FP64 operations, an FMA two (GRIDGEN_F64_OPS_PER_PAIR's count)
+        flops = fp64 + sum(op.split(".")[0] == "DFMA" for op in ops)
         out[name] = {"instructions": len(ops), **kinds,
                      "other": len(ops) - sum(kinds.values()),
                      "other_by_opcode": other,
-                     "per_pair": len(ops) / n_mufu}
+                     "per_pair": len(ops) / n_mufu,
+                     "fp64": fp64, "fp64_per_pair": fp64 / n_mufu,
+                     "fp64_ops_per_pair": flops / n_mufu}
 
     addr_index = {}
     for line in sass_text.splitlines():
@@ -543,7 +587,9 @@ def inner_loop_counts(sass_text):
 
 def phase_sass():
     """A diagnostic, gating nothing: instruction counts of each kernel's
-    atom loop, from cuobjdump where the toolkit has it."""
+    atom loop, float32 and float64 instantiations, from cuobjdump where
+    the toolkit has it (for float64, the FP64 instructions a pair issues
+    beside GRIDGEN_F64_OPS_PER_PAIR, the fewest its function needs)."""
     from openmmgridforce_tpu_torch import cuda_build
 
     for name in cuda_build.LIBRARIES:
@@ -553,14 +599,20 @@ def phase_sass():
                   "note": "no cuobjdump beside nvcc"})
             continue
         loops = inner_loop_counts(text)
-        per_type = {}
+        per_type, per_type_f64 = {}, {}
         for entry, counts in loops.items():
             for gt in GRID_TYPES:
                 if _entry_key(gt) in entry:
                     per_type[gt] = counts
+                if _entry_key(gt, f64=True) in entry:
+                    per_type_f64[gt] = counts
+        none = "no loop with a MUFU instruction found in the listing"
         emit({"phase": "sass", "kernel": name,
-              "inner_loop_per_grid_type": per_type or
-              "no loop with a MUFU instruction found in the listing"})
+              "inner_loop_per_grid_type": per_type or none,
+              "inner_loop_per_grid_type_f64": per_type_f64 or none,
+              "fp64_ops_per_pair_needed": (GRIDGEN_F64_OPS_PER_PAIR
+                                           if name == "gridgen_values"
+                                           else None)})
 
 
 def ragged_case(grid_type, counts, n_atoms, seed=53, device="cpu",
@@ -1311,6 +1363,306 @@ def _atomic_plan(index, n_atoms, keys, coef=None, src_rows=None,
                   None, None)
 
 
+def _api_grid_force(gfp, counts, origin, grid_data=None):
+    f = gfp.GridForce(grid_data)
+    f.addGridCounts(*counts)
+    f.addGridSpacing(SPACING, SPACING, SPACING)
+    f.setGridOrigin(*origin)
+    return f
+
+
+def _api_compare(ctx, host):
+    """getState of a Context on the card against a host Context on the
+    same forces: (relative energy error, force error over max|F|)."""
+    got = ctx.getState(getEnergy=True, getForces=True)
+    want = host.getState(getEnergy=True, getForces=True)
+    e = abs(got.getPotentialEnergy() - want.getPotentialEnergy()) / abs(
+        want.getPotentialEnergy())
+    f = float(np.abs(got.getForces() - want.getForces()).max()
+              / np.abs(want.getForces()).max())
+    return e, f
+
+
+def phase_api_path(torch, seed, smi, lig, lig_crd, rec, rec_crd, counts,
+                   origin, device="cuda"):
+    """The compat API (openmmgridforce_tpu_torch.api), the README's
+    workflow at full width: grids auto-generated through Contexts on the
+    receptor system (float64 values through K1, float64 derivatives
+    through K2, and a tiled OMGTILE file through float32 K1 slabs), then
+    the ligand system (hydrogen mass 4, HBonds) on the card: getState
+    against a host Context on the same forces (B-spline and triquintic),
+    Langevin steps as graph replays and as eager launches, recorded
+    against eager under explicit noise, Simulation.minimizeEnergy, and a
+    streamed Context on the tiled files against the in-memory one.
+    Returns the launches of each kernel instantiation on this path.
+    ``device="cpu"`` rehearses the phase at a small size on the host (no
+    kernels, recordings or kernel timings there)."""
+    import openmmgridforce_tpu_torch.api as gfp
+    from openmmgridforce_tpu_torch.mm import graphs
+    from openmmgridforce_tpu_torch.units import BOLTZ
+
+    timings = {}
+
+    def timing(metric, value):
+        timings[metric] = value
+        emit({"phase": "api_path_timing", "metric": metric, "value": value,
+              "card": smi})
+
+    values_kernel, derivs_kernel = _reset_launches()
+    workdir = tempfile.mkdtemp(prefix=".chip_smoke_tiles_",
+                               dir=os.path.dirname(os.path.abspath(
+                                   __file__)))
+    try:
+        # --- grids through Contexts on the receptor system -------------
+        _sync(torch, device)
+        t0 = time.perf_counter()
+        rec_system = gfp.create_system(rec, device=device)
+        _sync(torch, device)
+        timing("receptor_system_s", time.perf_counter() - t0)
+        stages = {"values": {}, "derivatives": {}, "tiled": {}}
+        data = {k: [gfp.GridData(*counts, *(SPACING,) * 3)
+                    for _ in GRID_TYPES] for k in ("values", "derivatives")}
+        for k in data:
+            for gd in data[k]:
+                gd.setOrigin(*origin)
+        for stage, launches in stages.items():
+            for gt, gd in zip(GRID_TYPES, data.get(stage, (None,) * 3)):
+                f = _api_grid_force(gfp, counts, origin, gd)
+                f.setAutoGenerateGrid(True)
+                f.setGridType(gt)
+                f.setGridCap(GRID_CAP)
+                f.setReceptorPositions(rec_crd)
+                f.setScalingFactors(np.zeros(rec.natom))
+                f.setComputeDerivatives(stage == "derivatives")
+                if stage == "tiled":
+                    f.setTiledOutputFile(os.path.join(workdir,
+                                                      f"{gt}.tiled"),
+                                         TILE_SIZE)
+                rec_system.addForce(f)
+            before = (values_kernel.launches, derivs_kernel.launches)
+            _sync(torch, device)
+            t0 = time.perf_counter()
+            gfp.Context(rec_system, gfp.VerletIntegrator(0.001),
+                        device=device)
+            _sync(torch, device)
+            timing(f"context_setup_{stage}_s", time.perf_counter() - t0)
+            launches.update(gridgen_values=values_kernel.launches
+                            - before[0],
+                            gridgen_derivs=derivs_kernel.launches
+                            - before[1])
+        tiled = [f.getTiledInputFile() for f in rec_system.getForces()[-3:]]
+        del rec_system
+        gc.collect()
+        on_card = torch.device(device).type == "cuda"
+        if on_card:
+            torch.cuda.empty_cache()
+
+        # --- the ligand on the card against the host ---------------------
+        scal_props = dict(zip(GRID_TYPES, GRID_TYPES))
+
+        def ligand_system(grid_datas, method, device=device,
+                          constraints="HBonds", files=None):
+            system = gfp.create_system(lig, hydrogen_mass=BPMF_H_MASS,
+                                       constraints=constraints,
+                                       device=device)
+            for i, gt in enumerate(GRID_TYPES):
+                if files is None:
+                    f = gfp.GridForce(grid_datas[i])
+                else:
+                    f = _api_grid_force(gfp, counts, origin)
+                    f.setTiledInputFile(files[i])
+                f.setInterpolationMethod(method)
+                f.setScalingProperty(scal_props[gt])
+                f.setAutoCalculateScalingFactors(True)
+                system.addForce(f)
+            return system
+
+        def ligand(grid_datas, method, device=device, constraints="HBonds",
+                   integrator=None, files=None):
+            ctx = gfp.Context(ligand_system(grid_datas, method, device,
+                                            constraints, files),
+                              integrator or gfp.VerletIntegrator(0.001),
+                              device=device)
+            ctx.setPositions(lig_crd)
+            return ctx
+
+        _sync(torch, device)
+        t0 = time.perf_counter()
+        ctx = ligand(data["values"], 1, integrator=gfp.LangevinIntegrator(
+            300.0, 1.0, BPMF_DT))
+        _sync(torch, device)
+        timing("ligand_context_setup_s", time.perf_counter() - t0)
+        errors = {"bspline": _api_compare(ctx, ligand(data["values"], 1,
+                                                      device="cpu"))}
+        hermite = ligand(data["derivatives"], 3)
+        errors["triquintic"] = _api_compare(
+            hermite, ligand(data["derivatives"], 3, device="cpu"))
+        del hermite
+        timing("getstate_ms", 1e3 * _host_seconds(
+            lambda: ctx.getState(getEnergy=True, getForces=True), 5))
+
+        # --- Langevin: graph replays, eager launches, recorded == eager ---
+        ctx.setVelocitiesToTemperature(300.0, seed=seed)
+        integ = ctx.getIntegrator()
+        integ.step(API_CHUNK)                          # records the blocks
+        masses = ctx._core.masses[:, None]
+        cs = ctx._core.constraints
+        dof = 3 * lig.natom - cs.num_constraints
+        kinetic = []
+        _sync(torch, device)
+        t0 = time.perf_counter()
+        for _ in range(API_STEPS // API_CHUNK):
+            integ.step(API_CHUNK)
+            kinetic.append(0.5 * (masses * ctx._velocities ** 2).sum())
+        _sync(torch, device)
+        graph_s = time.perf_counter() - t0
+        timing("steps_per_s_graph", API_STEPS / graph_s)
+        t_inst = (2.0 * torch.stack(kinetic) / (dof * BOLTZ)).cpu().numpy()
+        x, v = ctx._positions, ctx._velocities
+        d = x[cs.idx[:, 0]] - x[cs.idx[:, 1]]
+        violation = float((d.norm(dim=-1) / cs.length - 1.0).abs().max())
+        finite = bool(torch.isfinite(x).all() and torch.isfinite(v).all())
+        with graphs.eager():
+            _sync(torch, device)
+            t0 = time.perf_counter()
+            integ.step(EAGER_STEPS)
+            _sync(torch, device)
+        timing("steps_per_s_eager", EAGER_STEPS / (time.perf_counter() - t0))
+        if on_card:
+            timing("step_device_ms_graph", _replay_ms_per_step(
+                torch, ctx._segment))
+            timing("eval_ms", _cuda_ms(torch, lambda: ctx._terms.terms(x),
+                                       20))
+        # what an eager evaluation launches: ATen calls on the host (a
+        # host-only profile: recordings with WHILE nodes are alive)
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            ctx._terms.terms(x)
+        timing("eval_aten_calls", sum(
+            1 for ev in prof.events() if ev.name.startswith("aten::")))
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+        noise = torch.randn((GRAPH_CHECK_CONSTRAINED_STEPS,)
+                            + tuple(x.shape), generator=gen,
+                            dtype=x.dtype, device=x.device)
+        start = (ctx._positions.clone(), ctx._velocities.clone())
+        ends = []
+        for eager in (False, True):
+            ctx._positions, ctx._velocities = (t.clone() for t in start)
+            with graphs.eager() if eager else contextlib.nullcontext():
+                ctx._step(len(noise), noise=noise)
+            ends.append((ctx._positions, ctx._velocities))
+        dx = float((ends[0][0] - ends[1][0]).abs().max())
+        dv = float((ends[0][1] - ends[1][1]).abs().max())
+        del ctx
+
+        # --- minimisation from a perturbed pose ---------------------------
+        rng = np.random.default_rng(seed)
+        sim = gfp.Simulation(lig, ligand_system(data["values"], 1,
+                                                constraints=None),
+                             gfp.VerletIntegrator(0.001), device=device)
+        sim.context.setPositions(lig_crd + rng.normal(0.0, 0.004,
+                                                      lig_crd.shape))
+        e0 = sim.context.getState(getEnergy=True).getPotentialEnergy()
+        _sync(torch, device)
+        t0 = time.perf_counter()
+        sim.minimizeEnergy(maxIterations=API_MIN_ITERATIONS,
+                           tolerance=API_MIN_TOLERANCE)
+        _sync(torch, device)
+        min_s = time.perf_counter() - t0
+        timing("minimizer_s", min_s)
+        timing("minimizer_s_per_iteration",
+               min_s / max(sim.minimizer_iterations, 1))
+        st = sim.context.getState(getEnergy=True, getForces=True)
+        e1 = st.getPotentialEnergy()
+        rms = float(np.sqrt((st.getForces() ** 2).mean()))
+
+        # --- streamed Context on the tiled files -------------------------
+        streamed = ligand(None, 1, constraints=None, files=tiled)
+        memory = ligand(data["values"], 1, constraints=None)
+        streamed.getIntegrator().step(API_CHUNK)
+        _sync(torch, device)
+        t0 = time.perf_counter()
+        streamed.getIntegrator().step(API_STREAM_STEPS)
+        _sync(torch, device)
+        timing("streamed_steps_per_s",
+               API_STREAM_STEPS / (time.perf_counter() - t0))
+        memory.setPositions(streamed.getPositions())
+        e_stream = streamed.getState(getEnergy=True).getPotentialEnergy()
+        e_memory = memory.getState(getEnergy=True).getPotentialEnergy()
+        stream_err = abs(e_stream - e_memory) / max(abs(e_stream),
+                                                    abs(e_memory))
+        stream_finite = bool(np.isfinite(streamed.getPositions()).all())
+        del streamed, memory
+
+        # --- the path's kernel launches, timed at its shapes -------------
+        launches = {
+            "gridgen_values_f64": stages["values"]["gridgen_values"],
+            "gridgen_derivs_f64": stages["derivatives"]["gridgen_derivs"],
+            "gridgen_values": stages["tiled"]["gridgen_values"]}
+        from openmmgridforce_tpu_torch.ops.gridgen import receptor_atoms
+        for gt in GRID_TYPES if on_card else ():
+            atoms = receptor_atoms(gt, rec_crd, rec.charges, rec.sigmas,
+                                   rec.epsilons, dtype=torch.float64,
+                                   device="cuda")
+            geom = (atoms, counts, (SPACING,) * 3, origin, gt)
+            timing(f"kernel_gridgen_values_f64_{gt}_ms", _cuda_ms(
+                torch, lambda: values_kernel(*geom, GRID_CAP), 3))
+            timing(f"kernel_gridgen_derivs_f64_{gt}_ms", _cuda_ms(
+                torch, lambda: derivs_kernel(*geom), 1))
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+    last = t_inst[-(API_STEPS // 2) // API_CHUNK:]
+    emit({"phase": "api_path", "counts": counts,
+          "grid_points": counts[0] * counts[1] * counts[2],
+          "ligand_atoms": lig.natom, "receptor_atoms": rec.natom,
+          "receptor_gap_nm": BPMF_RECEPTOR_GAP, "dtype": "float64",
+          "launches": launches, "launches_by_stage": stages,
+          "getstate_rel_err": {k: {"energy": e, "forces": f}
+                               for k, (e, f) in errors.items()},
+          "steps": API_STEPS, "dt_ps": BPMF_DT, "friction": 1.0,
+          "constraints": cs.num_constraints, "dof": dof,
+          "T_inst_sampled_every": API_CHUNK,
+          "max_T_K": float(t_inst.max()),
+          "mean_T_over_300_last_half": float(last.mean() / 300.0),
+          "max_rel_constraint_violation": violation, "finite": finite,
+          "graph_vs_eager": {"steps": len(noise), "max_abs_dx_nm": dx,
+                             "max_abs_dv_nm_per_ps": dv},
+          "minimizer": {"e0": e0, "e1": e1, "rms": rms,
+                        "iterations": sim.minimizer_iterations,
+                        "max_iterations": API_MIN_ITERATIONS,
+                        "tolerance": API_MIN_TOLERANCE},
+          "streamed": {"steps": API_STREAM_STEPS, "energy": e_stream,
+                       "in_memory_energy": e_memory,
+                       "rel_err": stream_err, "finite": stream_finite},
+          "timings": timings, "card": smi})
+    if on_card:
+        check(launches["gridgen_values_f64"] == 3
+              and launches["gridgen_derivs_f64"] == 3
+              and launches["gridgen_values"] > 0
+              and stages["values"]["gridgen_derivs"] == 0
+              and stages["derivatives"]["gridgen_values"] == 0,
+              f"api_path launched {stages}")
+    for k, (e, f) in errors.items():
+        check(e < 1e-10 and f < 1e-9, f"api_path {k}: card vs host energy "
+              f"{e}, forces {f}")
+    check(finite, "api_path: non-finite positions or velocities")
+    check(violation < 1e-4, f"api_path: a constrained distance is "
+          f"{violation} from its length")
+    check(float(t_inst.max()) < 20000.0,
+          f"api_path: T_inst reached {float(t_inst.max())} K")
+    check(0.5 < float(last.mean() / 300.0) < 2.0,
+          f"api_path: mean T_inst / T {float(last.mean() / 300.0)}")
+    check(dx <= 1e-12 and dv <= 1e-12, f"api_path: recorded and eager "
+          f"steps differ by {dx} nm, {dv} nm/ps")
+    check(e1 < e0 and rms < 100.0, f"api_path: minimisation {e0} -> {e1}, "
+          f"rms {rms}")
+    check(stream_finite and stream_err < 1e-4, "api_path: streamed energy "
+          f"{e_stream} against in-memory {e_memory}")
+    return launches
+
+
 def _replay_ms_per_step(torch, seg, reps=BPMF_REPLAYS):
     """Device time a step of a recorded segment: its block graph replayed
     ``reps`` times back to back, timed with CUDA events (the host launches
@@ -1663,12 +2015,18 @@ def phase_float64_kernels(torch, rec, rec_crd, counts, origin, sm_count):
         err = float((got - ref).abs().max())
         ms = _cuda_ms(torch, lambda: gridgen_values(*args), 3)
         plain_ms = _cuda_ms(torch, lambda: gridgen_values_plain(*args), 1)
-        bound = max((pairs * GRIDGEN_OPS_PER_PAIR[gt] + columns
+        bound = max((pairs * GRIDGEN_F64_OPS_PER_PAIR[gt] + columns
                      * GRIDGEN_OPS_PER_COLUMN_ATOM) / H100_FP64_FLOPS,
                     (atoms.numel() + n_points) * 8 / H100_BYTES_PER_S)
+        # the bound before the double rsqrt / reciprocal were counted in
+        # full (one operation each, the float32 count)
+        bound_one_op = (pairs * GRIDGEN_OPS_PER_PAIR[gt] + columns
+                        * GRIDGEN_OPS_PER_COLUMN_ATOM) / H100_FP64_FLOPS
         per_type["gridgen_values"][gt] = {
             "max_abs_err": err, "rel_err": err / float(ref.abs().max()),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": 1e3 * bound,
+            "bound_ms_one_op_rsqrt": 1e3 * bound_one_op,
+            "bound_share": 1e3 * bound / ms,
             "bound_pipe": "fp64", "gpairs_per_s": pairs / ms / 1e6,
             "spill_bytes": _build_spills("gridgen_values", True),
             **_launch_facts("gridgen_values", cuda_gridgen, counts, gt,
@@ -2294,6 +2652,9 @@ def main(argv=None):
           "ligand differs from the other paths'")
     launches["gridgen_values"]["bpmf_path"] = phase_bpmf_path(
         torch, args.seed, lig, lig_crd, rec, rec_crd, counts, origin)
+    api_launches = phase_api_path(torch, args.seed, smi, lig, lig_crd, rec,
+                                  rec_crd, counts, origin)
+    launches["gridgen_values"]["api_path"] = api_launches["gridgen_values"]
 
     lig, lig_crd, rec, rec_crd = synthetic_complex(args.seed)
     checks_f64 = phase_float64_kernels(torch, rec, rec_crd, counts, origin,
@@ -2344,7 +2705,8 @@ def main(argv=None):
         line(name, per_type, launches[name], rel_key[name], name)
         for name, per_type in checks.items()] + [
         line(f"{name}_f64", checks_f64[name],
-             {"float64_generation": launches_f64[name]}, "rel_err", name)
+             {"float64_generation": launches_f64[name],
+              "api_path": api_launches[f"{name}_f64"]}, "rel_err", name)
         for name in checks_f64]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

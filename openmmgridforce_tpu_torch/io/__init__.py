@@ -2,7 +2,7 @@
 tile streamer, and out-of-core evaluation over it (``io.streaming``)."""
 
 from .gridio import (nc_to_v3, read_dx, read_netcdf,  # noqa: F401
-                     write_dx, write_netcdf)
+                     save_grid_as_dx, write_dx, write_netcdf)
 from .omgtile import (TiledGridReader, TiledGridWriter,  # noqa: F401
                       write_grid_tiled)
 from .v3 import (GridFileData, load_v3, save_v3,  # noqa: F401

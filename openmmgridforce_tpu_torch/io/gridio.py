@@ -1,6 +1,5 @@
 """NetCDF and OpenDX grid I/O (mirrors reference python/grid_io.py; the
-port's copy of the JAX package's numpy module, without
-``save_grid_as_dx``, which takes the compat API's GridForce).
+port's copy of the JAX package's numpy module).
 
 NetCDF uses the AlGDock variable layout — ``counts``/``spacing``/``origin``/
 ``vals``, each with a leading ``time`` dimension — via scipy's NetCDF3
@@ -141,3 +140,18 @@ def nc_to_v3(nc_file, grid_file):
     save_v3(grid_file, data["counts"], spacing, (0.0, 0.0, 0.0),
             np.asarray(vals).reshape(data["counts"]))
 
+
+
+def save_grid_as_dx(grid_force, filename):
+    """Save a GridForce (API object) or a Grid as .dx
+    (reference python/grid_io.py:167-183)."""
+    if hasattr(grid_force, "getGridParameters"):
+        counts, spacing, vals, _ = grid_force.getGridParameters()
+        origin = grid_force.getGridOrigin()
+    else:
+        counts = grid_force.counts
+        spacing, origin, vals = (
+            np.asarray(t.detach().cpu()) for t in
+            (grid_force.spacing, grid_force.origin, grid_force.vals))
+        vals = vals.reshape(-1)
+    write_dx(filename, counts, spacing, vals, origin)

@@ -30,6 +30,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..ops.scatter import add_rows, row_sum_plan
 from . import graphs
 
@@ -49,24 +50,26 @@ class ConstraintSet:
 
 
 def constraints_from_bonds(bond_idx, bond_r0, masses, which: str = "h_bonds",
-                           dtype=torch.float64, device="cpu"
+                           dtype=torch.float64, device=None
                            ) -> ConstraintSet:
-    """Build a ConstraintSet from bonded terms.
+    """Build a ConstraintSet from bonded terms, on ``device`` (the CUDA
+    card unless ``device="cpu"``).
 
     ``which``: "h_bonds" constrains bonds involving a hydrogen (mass < 2;
     a repartitioned hydrogen is not detectable, so pass the topology's
     original masses); "all_bonds" constrains every bond.
     """
+    if which not in ("h_bonds", "all_bonds"):
+        raise ValueError(which)
+    device = resolve_device(device)
     masses = np.asarray(masses, dtype=np.float64)
     bond_idx = np.asarray(bond_idx, dtype=np.int64).reshape(-1, 2)
     bond_r0 = np.asarray(bond_r0, dtype=np.float64)
     if which == "all_bonds":
         mask = np.ones(len(bond_idx), dtype=bool)
-    elif which == "h_bonds":
+    else:
         is_h = masses < 2.0
         mask = is_h[bond_idx[:, 0]] | is_h[bond_idx[:, 1]]
-    else:
-        raise ValueError(which)
     return ConstraintSet(
         idx=torch.as_tensor(bond_idx[mask], device=device),
         length=torch.as_tensor(bond_r0[mask], dtype=dtype, device=device),

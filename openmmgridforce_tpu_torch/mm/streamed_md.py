@@ -571,6 +571,33 @@ def _set_forces(x, payload, scaling, box, oob_k, gather):
     return torch.zeros_like(x).index_add_(-2, gather, fi)
 
 
+def _set_energy_forces(x, payload, scaling, box, oob_k, gather):
+    """``_set_forces`` and the set's energy (per leading index): what the
+    compat API's streamed minimiser descends (``api/context.py``). Kept
+    apart from ``_set_forces``, which the recorded MD steps run, so that
+    those compute no energy."""
+    xi = x if gather is None else x.index_select(-2, gather)
+    if isinstance(payload, tuple):            # direct stencil
+        res = [evaluate_grid(gr, xi, scaling[gi])
+               for gi, gr in enumerate(payload)]
+        pa = sum(r.per_atom_energy for r in res)
+        fr = sum(r.forces for r in res)
+    else:
+        res = evaluate_multi(payload, xi, scaling)
+        pa, fr = res.per_atom_energy, res.forces
+    blo, bhi = box
+    inside = ((xi >= blo) & (xi <= bhi)).all(-1)
+    zero = torch.zeros((), dtype=xi.dtype, device=xi.device)
+    dev = torch.where(xi < blo, xi - blo,
+                      torch.where(xi > bhi, xi - bhi, zero))
+    e_oob = 0.5 * oob_k * (dev * dev).sum(-1)
+    energy = torch.where(inside, pa.to(xi.dtype), e_oob).sum(-1)
+    fi = torch.where(inside[..., None], fr.to(xi.dtype), -oob_k * dev)
+    if gather is not None:
+        fi = torch.zeros_like(x).index_add_(-2, gather, fi)
+    return energy, fi
+
+
 class StreamedBatchMD:
     """Langevin MD for a batch of replica clouds over file-backed grids.
 

@@ -571,3 +571,121 @@ def test_streamed_step_without_noise_records_its_generator(cuda, tmp_path):
     assert torch.isfinite(runs[0]).all()
     assert not torch.equal(runs[0], torch.as_tensor(np.stack([x, x + 0.3])))
     torch.testing.assert_close(runs[0], runs[1], rtol=0, atol=1e-12)
+
+
+def _api_ligand(device, forces, method=1, constraints=None,
+                integrator=None, platform=None):
+    """The compat API's ligand system on ``device`` with a GridForce per
+    (type, values, derivatives) of ``forces``."""
+    import openmmgridforce_tpu_torch.api as gfp
+
+    lig, x, _, _ = chip_smoke.synthetic_complex(3, n_ligand=12,
+                                                n_receptor=60, gap=0.35)
+    system = gfp.create_system(lig, hydrogen_mass=4.0,
+                               constraints=constraints, device=device)
+    for gt, counts, origin, vals, derivs in forces:
+        f = gfp.GridForce()
+        f.addGridCounts(*counts)
+        f.addGridSpacing(0.05, 0.05, 0.05)
+        f.setGridOrigin(*origin)
+        f.setGridValues(vals)
+        if derivs is not None:
+            f.setDerivatives(derivs)
+        f.setInterpolationMethod(method)
+        f.setScalingProperty(gt)
+        f.setAutoCalculateScalingFactors(True)
+        system.addForce(f)
+    ctx = gfp.Context(system, integrator or gfp.VerletIntegrator(0.001),
+                      platform, device=device)
+    ctx.setPositions(x)
+    return ctx
+
+
+def _api_grids(device, derivatives):
+    """Charge/ljr/lja grids auto-generated through a receptor Context on
+    ``device`` (the float64 kernels on the card)."""
+    import openmmgridforce_tpu_torch.api as gfp
+
+    _, x, rec, rx = chip_smoke.synthetic_complex(3, n_ligand=12,
+                                                 n_receptor=60, gap=0.35)
+    origin = tuple(x.min(0) - 0.4)
+    counts = tuple(int(c) for c in
+                   np.ceil((x.max(0) - x.min(0) + 0.8) / 0.05) + 1)
+    system = gfp.create_system(rec, device=device)
+    forces = []
+    for gt in ("charge", "ljr", "lja"):
+        f = gfp.GridForce()
+        f.addGridCounts(*counts)
+        f.addGridSpacing(0.05, 0.05, 0.05)
+        f.setGridOrigin(*origin)
+        f.setAutoGenerateGrid(True)
+        f.setGridType(gt)
+        f.setReceptorPositions(rx)
+        f.setComputeDerivatives(derivatives)
+        f.setScalingFactors(np.zeros(len(rx)))
+        system.addForce(f)
+        forces.append(f)
+    gfp.Context(system, gfp.VerletIntegrator(0.001), device=device)
+    return [(gt, counts, origin, np.asarray(f.getGridValues()),
+             f.getDerivatives() if f.hasDerivatives() else None)
+            for gt, f in zip(("charge", "ljr", "lja"), forces)]
+
+
+@pytest.mark.parametrize("method", [1, 3])
+@pytest.mark.parametrize("platform", [None, "Reference", "Compensated"])
+def test_api_context_on_the_card_matches_the_host(cuda, method, platform):
+    """Grids generated through a Context on the card (the float64 kernels)
+    equal the host's; the card's getState equals a host Context's on the
+    same forces: energies to 1e-10 relative, forces to 1e-9 of max|F|."""
+    before = (cuda_gridgen.gridgen_values.launches,
+              cuda_gridgen_derivs.gridgen_derivs.launches)
+    grids = _api_grids(cuda, method == 3)
+    assert (cuda_gridgen.gridgen_values.launches - before[0],
+            cuda_gridgen_derivs.gridgen_derivs.launches - before[1]) == (
+        (0, 3) if method == 3 else (3, 0))
+    host = _api_grids("cpu", method == 3)
+    for (_, _, _, v, d), (_, _, _, hv, hd) in zip(grids, host):
+        np.testing.assert_allclose(v, hv, rtol=0,
+                                   atol=1e-10 * np.abs(hv).max())
+    on_card = _api_ligand(cuda, grids, method, platform=platform)
+    on_host = _api_ligand("cpu", grids, method, platform=platform)
+    for groups in (None, {0}):
+        got = on_card.getState(getEnergy=True, getForces=True, groups=groups)
+        want = on_host.getState(getEnergy=True, getForces=True,
+                                groups=groups)
+        assert got.getPotentialEnergy() == pytest.approx(
+            want.getPotentialEnergy(), rel=1e-10)
+        f = want.getForces()
+        np.testing.assert_allclose(got.getForces(), f, rtol=0,
+                                   atol=1e-9 * np.abs(f).max())
+
+
+@pytest.mark.parametrize("constraints", [None, "HBonds"])
+def test_api_recorded_stepping_equals_eager(cuda, constraints):
+    """The Context's recorded segments (CUDA graphs) against the same
+    steps as eager launches under the same noise, bit for bit; a
+    setTemperature between runs reaches the recording."""
+    import openmmgridforce_tpu_torch.api as gfp
+    from openmmgridforce_tpu_torch.mm import graphs
+
+    grids = _api_grids(cuda, False)
+    n = 10
+    noise = torch.randn((2, n) + (12, 3), generator=torch.Generator(
+        device=cuda).manual_seed(4), dtype=torch.float64, device=cuda)
+    out = []
+    for eager in (False, True):
+        ctx = _api_ligand(cuda, grids, 1, constraints,
+                          gfp.LangevinIntegrator(300.0, 5.0, 0.002))
+        ctx.setVelocitiesToTemperature(300.0, seed=5)
+        with graphs.eager() if eager else torch.no_grad():
+            ctx._step(n, noise=noise[0])
+            ctx.getIntegrator().setTemperature(100.0)
+            ctx._step(n, noise=noise[1])
+        out.append(ctx.getState(getPositions=True, getVelocities=True))
+        assert (ctx._segment is not None) and (
+            eager or any(b.graph is not None
+                         for b in ctx._segment._blocks.values()))
+    np.testing.assert_array_equal(out[0].getPositions(),
+                                  out[1].getPositions())
+    np.testing.assert_array_equal(out[0].getVelocities(),
+                                  out[1].getVelocities())

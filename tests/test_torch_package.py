@@ -13,8 +13,9 @@ import pytest
 import torch
 
 import openmmgridforce_tpu_torch as port
+import openmmgridforce_tpu_torch.api as api
 from openmmgridforce_tpu_torch import convert
-from openmmgridforce_tpu_torch.mm import system
+from openmmgridforce_tpu_torch.mm import constraints, system
 from openmmgridforce_tpu_torch import cuda_build
 from openmmgridforce_tpu_torch.io import streaming
 from openmmgridforce_tpu_torch.ops import (cuda_gridgen, cuda_gridgen_derivs,
@@ -45,7 +46,8 @@ def test_port_imports_no_jax():
                 "sampling", "sampling.bat", "sampling.sampler", "utils",
                 "utils.checkpoint", "utils.observe", "io", "io.omgtile",
                 "io.native", "io.v3", "io.gridio", "io.streaming",
-                "ops.fd_derivs", "mm.streamed_md"):
+                "ops.fd_derivs", "mm.streamed_md", "api", "api.context",
+                "api.gridforce", "api.isolated", "api.lbfgs"):
         assert "openmmgridforce_tpu_torch." + new in mods
     code = ("import importlib, importlib.util, sys\n"
             f"for m in {mods!r}:\n"
@@ -111,6 +113,7 @@ def test_entry_points_raise_without_cuda(monkeypatch):
                                     interp_method=1)
     cpu_system = system.system_from_amber(lig, constraints="HBonds",
                                           device="cpu")
+    cpu_api_system = api.create_system(lig, device="cpu")
     calls = [
         lambda: port.resolve_device(),
         lambda: gridgen.generate_grid((3, 3, 3), (0.1,) * 3, (0.0,) * 3,
@@ -143,6 +146,12 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         lambda: port.grid.grid_from_numpy(z, (0.1,) * 3),
         lambda: streaming.StreamedGridEvaluator("never-read.tiled"),
         lambda: port.io.grid_from_file(str(ROOT / "never-read.grid")),
+        lambda: constraints.constraints_from_bonds(lig.bond_idx, lig.bond_r0,
+                                                   lig.masses),
+        lambda: api.create_system(lig),
+        lambda: api.Context(cpu_api_system, api.VerletIntegrator(0.001)),
+        lambda: api.Simulation(lig, cpu_api_system,
+                               api.VerletIntegrator(0.001)),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
