@@ -554,3 +554,38 @@ def test_isolated_nonbonded_force(world):
     assert_states_match(out[1], out[0], groups=(None, {5}))
     f = out[0].getState(getForces=True, groups={5}).getForces()
     np.testing.assert_array_equal(f[[1, 3, 5, 7, 8]], 0.0)
+
+
+def test_readme_compat_example_runs_on_the_host(tmp_path, monkeypatch,
+                                                world):
+    """The README's compat-API example for the port, on the CPU (its
+    ``device="cuda"`` made ``"cpu"``, 20 steps for 1000), against files
+    of the synthetic ligand."""
+    import re
+    from pathlib import Path
+
+    from test_torch_mm import write_inpcrd, write_prmtop
+
+    monkeypatch.chdir(tmp_path)
+    write_prmtop(tmp_path / "ligand.prmtop", world["lig"])
+    write_inpcrd(tmp_path / "ligand.inpcrd", world["x"])
+    vals, _ = generated(tgfp, world, False, "CUDA")[0]
+    f = tgfp.GridForce()
+    _geometry(f, world)
+    f.setGridType("charge")
+    f.setGridValues(vals)
+    f.saveToFile("charge.grid")
+    readme = Path(__file__).resolve().parents[1] / "README.md"
+    blocks = [b for b in re.findall(r"```python\n(.*?)```",
+                                    readme.read_text(), re.DOTALL)
+              if "import openmmgridforce_tpu_torch.api as gfp" in b]
+    assert len(blocks) == 1
+    src = blocks[0]
+    for old, new in (('device="cuda"', 'device="cpu"'),
+                     ("step(1000)", "step(20)")):
+        assert old in src
+        src = src.replace(old, new)
+    ns = {}
+    exec(compile(src, "README-compat-port", "exec"), ns)
+    x = ns["ctx"].getPositions()
+    assert np.isfinite(x).all() and not np.array_equal(x, world["x"])
