@@ -101,3 +101,34 @@ def test_set_temperature_takes_effect(world):
     np.testing.assert_array_equal(moved, made)
     assert not np.allclose(old, moved)
     assert not np.allclose(run(50.0, 300.0, first=10), made)
+
+
+def test_update_parameters_drops_the_stepper_and_its_grids(world):
+    """updateParametersInContext re-resolves the forces and drops the
+    stepper: the old resolved terms (and the grids they hold) are freed
+    at once, with no reference cycle waiting for a garbage collection,
+    and the next steps read the new grids."""
+    import weakref
+
+    ctx = ligand_context(tgfp, world, 1, "CUDA",
+                         integrator=tgfp.VerletIntegrator(0.001))
+    ctx.setVelocities(_velocities(world))
+    ctx.getIntegrator().step(5)
+    assert ctx._segment is not None
+    old_terms = weakref.ref(ctx._terms)
+    old_grid = weakref.ref(ctx._grid_infos[4].grid.vals)
+    force = ctx.system.getForces()[4]
+    force.setGridValues(2.0 * np.asarray(force.getGridValues()))
+    force.updateParametersInContext(ctx)
+    assert ctx._segment is None
+    assert old_terms() is None and old_grid() is None
+    st = ctx.getState(getPositions=True, getVelocities=True)
+    ctx.getIntegrator().step(5)
+    fresh = ligand_context(
+        tgfp, world, 1, "CUDA", integrator=tgfp.VerletIntegrator(0.001),
+        configure=lambda i, f: (f.setGridValues(
+            2.0 * np.asarray(f.getGridValues())) if i == 0 else None))
+    fresh.setPositions(st.getPositions())
+    fresh.setVelocities(st.getVelocities())
+    fresh.getIntegrator().step(5)
+    np.testing.assert_array_equal(fresh.getPositions(), ctx.getPositions())

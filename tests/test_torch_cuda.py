@@ -689,3 +689,26 @@ def test_api_recorded_stepping_equals_eager(cuda, constraints):
                                   out[1].getPositions())
     np.testing.assert_array_equal(out[0].getVelocities(),
                                   out[1].getVelocities())
+
+
+def test_api_update_parameters_frees_the_recording(cuda):
+    """updateParametersInContext drops the Context's recorded segment:
+    the recording and the resolved terms it read are freed at once (no
+    reference cycle), and the next steps record the new grids."""
+    import weakref
+
+    import openmmgridforce_tpu_torch.api as gfp
+
+    grids = _api_grids(cuda, False)
+    ctx = _api_ligand(cuda, grids, 1, "HBonds",
+                      gfp.LangevinIntegrator(300.0, 5.0, 0.002))
+    ctx.setVelocitiesToTemperature(300.0, seed=5)
+    ctx.getIntegrator().step(8)
+    seg, terms = weakref.ref(ctx._segment), weakref.ref(ctx._terms)
+    force = ctx.system.getForces()[4]
+    force.setGridValues(2.0 * np.asarray(force.getGridValues()))
+    force.updateParametersInContext(ctx)
+    assert seg() is None and terms() is None
+    ctx.getIntegrator().step(8)
+    assert any(b.graph is not None for b in ctx._segment._blocks.values())
+    assert np.isfinite(ctx.getPositions()).all()
