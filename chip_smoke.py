@@ -95,14 +95,16 @@ GRIDGEN_OPS_PER_COLUMN_ATOM = 5
 # double precision in place of its one operation. FP64 has no
 # special-function pipe: a MUFU.RSQ64H / MUFU.RCP64H gives a seed of about
 # 23 bits from the high word (on the MUFU pipe, not counted), and the
-# fewest FP64 operations (an FMA two) that finish it are, for the double
-# rsqrt, one third-order Newton step: t = x y, e = 1 - t y,
+# fewest FP64 operations (an FMA two) that finish it to a faithfully
+# rounded double (the seed's 2^-23 cubed is below 2^-53) are one
+# third-order Newton step: for the rsqrt, t = x y, e = 1 - t y,
 # p = 1/2 + 3/8 e, y + (e y) p, a multiply, two FMAs, a multiply and an
-# FMA, 8 operations (the seed's 2^-23 cubed is below 2^-53); for the
-# correctly rounded reciprocal (__drcp_rn), a cubic step e = 1 - x y,
-# e = e + e e, y = y + y e and a rounding step r = 1 - x y, y = y + y r,
-# five FMAs, 10 operations. So 7 - 1 + 8, 10 - 1 + 10 and 9 - 1 + 10.
-GRIDGEN_F64_OPS_PER_PAIR = {"charge": 14, "ljr": 19, "lja": 18}
+# FMA, 8 operations; for the reciprocal, e = 1 - x y, e = e + e e,
+# y = y + y e, three FMAs, 6 operations. (The kernel's __drcp_rn adds a
+# rounding step, two FMAs, for the correctly rounded result: work of the
+# implementation, not of the function.) So 7 - 1 + 8, 10 - 1 + 6 and
+# 9 - 1 + 6.
+GRIDGEN_F64_OPS_PER_PAIR = {"charge": 14, "ljr": 15, "lja": 14}
 # FP32 operations per pair that the derivative kernel's function needs,
 # every multiply, add, subtract and max counted once (an FMA is two), with
 # the work shared: 3 for the displacement, 6 for the clamped r^2, 0 / 4 / 3
@@ -1409,6 +1411,8 @@ def phase_api_path(torch, seed, smi, lig, lig_crd, rec, rec_crd, counts,
               "card": smi})
 
     values_kernel, derivs_kernel = _reset_launches()
+    on_card = torch.device(device).type == "cuda"
+    start_gb = torch.cuda.memory_allocated() / 1e9 if on_card else None
     workdir = tempfile.mkdtemp(prefix=".chip_smoke_tiles_",
                                dir=os.path.dirname(os.path.abspath(
                                    __file__)))
@@ -1452,10 +1456,11 @@ def phase_api_path(torch, seed, smi, lig, lig_crd, rec, rec_crd, counts,
                             - before[1])
         tiled = [f.getTiledInputFile() for f in rec_system.getForces()[-3:]]
         del rec_system
-        gc.collect()
-        on_card = torch.device(device).type == "cuda"
         if on_card:
             torch.cuda.empty_cache()
+        # what the receptor system and its Contexts leave on the card: no
+        # reference cycle holds them for a garbage collection
+        left_gb = torch.cuda.memory_allocated() / 1e9 if on_card else None
 
         # --- the ligand on the card against the host ---------------------
         scal_props = dict(zip(GRID_TYPES, GRID_TYPES))
@@ -1636,6 +1641,8 @@ def phase_api_path(torch, seed, smi, lig, lig_crd, rec, rec_crd, counts,
           "streamed": {"steps": API_STREAM_STEPS, "energy": e_stream,
                        "in_memory_energy": e_memory,
                        "rel_err": stream_err, "finite": stream_finite},
+          "allocated_gb_at_start": start_gb,
+          "allocated_gb_after_receptor_system": left_gb,
           "timings": timings, "card": smi})
     if on_card:
         check(launches["gridgen_values_f64"] == 3

@@ -49,7 +49,7 @@ from ..ops.pairwise import pair_energy_forces
 from ..ops.scatter import row_sum, row_sum_plan
 from ..units import BOLTZ
 from . import lbfgs
-from .gridforce import Force, GridForce
+from .gridforce import ContextRef, Force, GridForce
 from .isolated import IsolatedNonbondedForce
 
 
@@ -89,17 +89,17 @@ class NonbondedForce(Force):
 class ApiSystem:
     """Holds topology-derived terms plus user-added forces. The terms are
     built in float64 on ``device`` (the CUDA card unless
-    ``device="cpu"``), and again on another device when a Context there
-    asks for them (``core``)."""
+    ``device="cpu"``); a Context of the system runs there too."""
 
     def __init__(self, topology, hydrogen_mass: Optional[float] = None,
                  constraints: Optional[str] = None,
                  remove_cm_motion: bool = True, device=None):
         self.topology = topology
         self.constraints = constraints
-        self._hydrogen_mass = hydrogen_mass
-        self._cores = {}
-        self._core = self._core_on(resolve_device(device))
+        self.device = resolve_device(device)
+        self._core = system_from_amber(
+            topology, dtype=torch.float64, hydrogen_mass=hydrogen_mass,
+            constraints=constraints, device=self.device)
         self._forces: List[Force] = [
             HarmonicBondForce(),
             HarmonicAngleForce(),
@@ -107,16 +107,6 @@ class ApiSystem:
             NonbondedForce(topology.charges, topology.sigmas,
                            topology.epsilons),
         ]
-
-    def _core_on(self, device):
-        """The mm System of the topology on ``device``, built once."""
-        core = self._cores.get(device)
-        if core is None:
-            core = self._cores[device] = system_from_amber(
-                self.topology, dtype=torch.float64,
-                hydrogen_mass=self._hydrogen_mass,
-                constraints=self.constraints, device=device)
-        return core
 
     def getNumParticles(self):
         return self.topology.natom
@@ -162,15 +152,21 @@ def create_system(prmtop, hydrogen_mass=None, constraints=None,
 # ----------------------------------------------------------------------
 
 class _Integrator:
+    _context = ContextRef()     # the Context it steps
+
     def __init__(self, dt):
         self.dt = float(dt)
-        self._context: Optional["Context"] = None
 
     def getStepSize(self):
         return self.dt
 
     def step(self, n):
-        self._context._step(int(n))
+        ctx = self._context
+        if ctx is None:
+            raise RuntimeError("this integrator is bound to no live Context "
+                               "(a Context holds its integrator, not the "
+                               "other way round: keep the Context)")
+        ctx._step(int(n))
 
 
 class VerletIntegrator(_Integrator):
@@ -394,10 +390,14 @@ class Context:
                  platform=None, seed: int = 0, device=None):
         self.device = resolve_device(device)
         self.system = system
+        if self.device != system.device:
+            raise ValueError(
+                f"a Context on {self.device} for a system built on "
+                f"{system.device}: pass create_system the same device")
         self.integrator = integrator
         integrator._context = self
         self._semantics = _semantics(platform)
-        self._core = system._core_on(self.device)
+        self._core = system._core
         self._positions: Optional[torch.Tensor] = None
         self._velocities: Optional[torch.Tensor] = None
         self._generator = torch.Generator(device=self.device)
@@ -809,7 +809,7 @@ class Context:
         stepping engine. A cloud that no bounded region holds escalates
         to the full-grid payload on the Context's device, within
         ``stream_full_region_budget_bytes``."""
-        from ..mm.streamed_md import _cloud_bounds, _set_energy_forces
+        from ..mm.streamed_md import _cloud_bounds, _set_forces, _sub
 
         eng = self._ensure_stream_engine()
         sets = eng.sets
@@ -820,20 +820,17 @@ class Context:
         metas = [s.device_tensors(x.dtype, x.device) + (
             s.gather_index(n_atoms), float(s.oob_k)) for s in sets]
 
-        def take(p, gather):
-            return p if gather is None else p.index_select(0, gather)
-
         def segment(x0, st, it0, payloads):
             def value_and_grad(p):
                 e, f = terms.terms(p, None, exclude=excl)
                 for (scal, box, gather, k), pay in zip(metas, payloads):
-                    e_s, f_s = _set_energy_forces(p, pay, scal, box, k,
-                                                  gather)
+                    e_s, f_s = _set_forces(p, pay, scal, box, k, gather,
+                                           energy=True)
                     e, f = e + e_s, f + f_s
                 return e, -f
 
             def bbox(p):
-                return [_cloud_bounds(take(p, gather), *box)
+                return [_cloud_bounds(_sub(p, gather), *box)
                         for _, box, gather, _ in metas]
 
             pt = lbfgs.point(x0, value_and_grad)

@@ -13,6 +13,7 @@ reference's mutate-during-initialize pattern, GridForceImpl.cpp:55-62).
 from __future__ import annotations
 
 import dataclasses
+import weakref
 from typing import List, Optional
 
 import numpy as np
@@ -26,6 +27,26 @@ from ..units import DEFAULT_GRID_CAP, DEFAULT_OOB_K
 InvPowerMode_NONE = int(InvPowerMode.NONE)
 InvPowerMode_RUNTIME = int(InvPowerMode.RUNTIME)
 InvPowerMode_STORED = int(InvPowerMode.STORED)
+
+
+class ContextRef:
+    """The Context a force or an integrator is bound to, held weakly: the
+    Context holds them, so a strong back-reference would be a cycle that
+    keeps a dropped Context's recording and grids on the device until the
+    next garbage collection. ``None`` when unbound or dropped."""
+
+    def __set_name__(self, owner, name):
+        self._slot = f"_{name}_ref"
+
+    def __get__(self, obj, owner=None):
+        if obj is None:
+            return self
+        ref = obj.__dict__.get(self._slot)
+        return None if ref is None else ref()
+
+    def __set__(self, obj, context):
+        obj.__dict__[self._slot] = (None if context is None
+                                    else weakref.ref(context))
 
 
 @dataclasses.dataclass
@@ -170,6 +191,8 @@ class Force:
 
 
 class GridForce(Force):
+    _context = ContextRef()     # filled at Context creation
+
     def __init__(self, grid_data: Optional[GridData] = None):
         super().__init__()
         self._counts: List[int] = []
@@ -201,8 +224,6 @@ class GridForce(Force):
         self._tiled_output_tile_size = 32
         self._tiled_input_file = ""
         self._grid_data: Optional[GridData] = None
-        # filled at Context creation
-        self._context = None
         if grid_data is not None:
             self.setGridData(grid_data)
 

@@ -37,6 +37,7 @@ Escalated replicas run on the card against the raw full grids
 from __future__ import annotations
 
 import collections
+import functools
 from typing import Sequence
 
 import numpy as np
@@ -551,51 +552,33 @@ def _default_base_force(base_args, x):
     return energy_and_forces(base_args, [], x)[1]
 
 
-def _set_forces(x, payload, scaling, box, oob_k, gather):
+def _set_forces(x, payload, scaling, box, oob_k, gather, energy=False):
     """One set's forces on its atoms of ``x`` [B, N, 3]: the region
-    payload inside the set's full grid, the full-box restraint outside."""
-    xi = x if gather is None else x.index_select(-2, gather)
+    payload inside the set's full grid, the full-box restraint outside.
+    With ``energy``, ``(energy per leading index, forces)``: what the
+    compat API's streamed minimiser descends (``api/context.py``); the
+    recorded MD steps ask for the forces alone."""
+    xi = _sub(x, gather)
     if isinstance(payload, tuple):            # direct stencil
-        fr = sum(evaluate_grid(gr, xi, scaling[gi]).forces
-                 for gi, gr in enumerate(payload))
+        res = [evaluate_grid(gr, xi, scaling[gi])
+               for gi, gr in enumerate(payload)]
     else:
-        fr = evaluate_multi(payload, xi, scaling).forces
+        res = [evaluate_multi(payload, xi, scaling)]
     blo, bhi = box
     inside = ((xi >= blo) & (xi <= bhi)).all(-1, keepdim=True)
     zero = torch.zeros((), dtype=xi.dtype, device=xi.device)
     dev = torch.where(xi < blo, xi - blo,
                       torch.where(xi > bhi, xi - bhi, zero))
+    fr = functools.reduce(torch.add, (r.forces for r in res))
     fi = torch.where(inside, fr.to(xi.dtype), -oob_k * dev)
-    if gather is None:
-        return fi
-    return torch.zeros_like(x).index_add_(-2, gather, fi)
-
-
-def _set_energy_forces(x, payload, scaling, box, oob_k, gather):
-    """``_set_forces`` and the set's energy (per leading index): what the
-    compat API's streamed minimiser descends (``api/context.py``). Kept
-    apart from ``_set_forces``, which the recorded MD steps run, so that
-    those compute no energy."""
-    xi = x if gather is None else x.index_select(-2, gather)
-    if isinstance(payload, tuple):            # direct stencil
-        res = [evaluate_grid(gr, xi, scaling[gi])
-               for gi, gr in enumerate(payload)]
-        pa = sum(r.per_atom_energy for r in res)
-        fr = sum(r.forces for r in res)
-    else:
-        res = evaluate_multi(payload, xi, scaling)
-        pa, fr = res.per_atom_energy, res.forces
-    blo, bhi = box
-    inside = ((xi >= blo) & (xi <= bhi)).all(-1)
-    zero = torch.zeros((), dtype=xi.dtype, device=xi.device)
-    dev = torch.where(xi < blo, xi - blo,
-                      torch.where(xi > bhi, xi - bhi, zero))
-    e_oob = 0.5 * oob_k * (dev * dev).sum(-1)
-    energy = torch.where(inside, pa.to(xi.dtype), e_oob).sum(-1)
-    fi = torch.where(inside[..., None], fr.to(xi.dtype), -oob_k * dev)
     if gather is not None:
         fi = torch.zeros_like(x).index_add_(-2, gather, fi)
-    return energy, fi
+    if not energy:
+        return fi
+    pa = functools.reduce(torch.add, (r.per_atom_energy for r in res))
+    e = torch.where(inside[..., 0], pa.to(xi.dtype),
+                    0.5 * oob_k * (dev * dev).sum(-1)).sum(-1)
+    return e, fi
 
 
 class StreamedBatchMD:

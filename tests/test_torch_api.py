@@ -530,6 +530,14 @@ def test_update_parameters_in_context(world):
     assert e1 == pytest.approx(3.0 * e0, rel=1e-12)
 
 
+def test_context_runs_on_its_systems_device(world):
+    """A system's terms live on the device it was built on: a Context
+    elsewhere raises rather than build them a second time."""
+    system = tgfp.create_system(world["lig"], device="cpu")
+    with pytest.raises(ValueError, match="same device"):
+        tgfp.Context(system, tgfp.VerletIntegrator(0.001), device="meta")
+
+
 def test_isolated_nonbonded_force(world):
     """IsolatedNonbondedForce with exclusions, exceptions and a particle
     map, inside a Context, against JAX."""

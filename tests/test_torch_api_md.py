@@ -103,6 +103,36 @@ def test_set_temperature_takes_effect(world):
     assert not np.allclose(run(50.0, 300.0, first=10), made)
 
 
+def test_dropping_the_context_frees_its_stepper_and_its_grids(world):
+    """The forces and the integrator hold their Context weakly, so a
+    dropped Context, its stepper and the grids it resolved are freed at
+    once, with no garbage collection, while the forces and the system
+    live on."""
+    import gc
+    import weakref
+
+    integrator = tgfp.VerletIntegrator(0.001)
+    ctx = ligand_context(tgfp, world, 1, "CUDA", integrator=integrator)
+    ctx.setVelocities(_velocities(world))
+    integrator.step(5)
+    force = ctx.system.getForces()[4]
+    assert force._context is ctx and integrator._context is ctx
+    refs = [weakref.ref(o) for o in (ctx, ctx._segment, ctx._terms,
+                                     ctx._grid_infos[4].grid.vals)]
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        del ctx
+        assert [r() for r in refs] == [None] * len(refs)
+    finally:
+        if enabled:
+            gc.enable()
+    assert force._context is None and integrator._context is None
+    assert force.getParticleGroupEnergies() == []
+    with pytest.raises(RuntimeError, match="no live Context"):
+        integrator.step(1)
+
+
 def test_update_parameters_drops_the_stepper_and_its_grids(world):
     """updateParametersInContext re-resolves the forces and drops the
     stepper: the old resolved terms (and the grids they hold) are freed

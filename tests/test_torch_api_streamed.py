@@ -186,8 +186,9 @@ def test_streamed_detects_self_reversing_excursion(tmp_path):
             ctx.stream_full_region_budget_bytes = budget
         return ctx
 
+    unescalated = context(budget=0)
     with pytest.raises(RuntimeError, match="crossed their streamed"):
-        context(budget=0).getIntegrator().step(400)
+        unescalated.getIntegrator().step(400)
     ctx = context()
     ctx.getIntegrator().step(400)
     assert any(s.full_escalations > 0

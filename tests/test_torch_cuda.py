@@ -691,6 +691,29 @@ def test_api_recorded_stepping_equals_eager(cuda, constraints):
                                   out[1].getVelocities())
 
 
+def test_api_dropped_context_frees_the_recording(cuda):
+    """A dropped Context frees its recorded segment and its resolved
+    terms at once, with no garbage collection: the forces and the
+    integrator hold it weakly."""
+    import gc
+    import weakref
+
+    import openmmgridforce_tpu_torch.api as gfp
+
+    grids = _api_grids(cuda, False)
+    ctx = _api_ligand(cuda, grids, 1, "HBonds",
+                      gfp.LangevinIntegrator(300.0, 5.0, 0.002))
+    ctx.setVelocitiesToTemperature(300.0, seed=5)
+    ctx.getIntegrator().step(8)
+    refs = [weakref.ref(o) for o in (ctx, ctx._segment, ctx._terms)]
+    gc.disable()
+    try:
+        del ctx
+        assert [r() for r in refs] == [None] * len(refs)
+    finally:
+        gc.enable()
+
+
 def test_api_update_parameters_frees_the_recording(cuda):
     """updateParametersInContext drops the Context's recorded segment:
     the recording and the resolved terms it read are freed at once (no
