@@ -25,7 +25,8 @@ over the native tile cache against the whole grids on the card, and a
 kernels are built from the checkout and held against their plain PyTorch
 twins first: on ragged shapes down to one point and one atom, then at the
 paths' full shapes, where each is timed beside its bound, its launch shape
-and the instruction counts of its atom loop. Every MD segment runs as
+and the instruction counts of its atom loop; float64 K1's reciprocals and
+single pairs are held to their ulps against correctly rounded values. Every MD segment runs as
 replays of CUDA graphs of blocks of steps; each path also times (and
 profiles) the same segment as eager launches, and segment_graph_check
 holds the two trajectories against each other under the same explicit
@@ -92,19 +93,26 @@ GRIDGEN_OPS_PER_PAIR = {"charge": 7, "ljr": 10, "lja": 9}
 GRIDGEN_OPS_PER_COLUMN_ATOM = 5
 # FP64 operations a pair of the float64 values kernel needs: the count
 # above with the rsqrt (charge) or the reciprocal (ljr, lja) carried to
-# double precision in place of its one operation. FP64 has no
-# special-function pipe: a MUFU.RSQ64H / MUFU.RCP64H gives a seed of about
-# 23 bits from the high word (on the MUFU pipe, not counted), and the
-# fewest FP64 operations (an FMA two) that finish it to a faithfully
-# rounded double (the seed's 2^-23 cubed is below 2^-53) are one
-# third-order Newton step: for the rsqrt, t = x y, e = 1 - t y,
-# p = 1/2 + 3/8 e, y + (e y) p, a multiply, two FMAs, a multiply and an
-# FMA, 8 operations; for the reciprocal, e = 1 - x y, e = e + e e,
-# y = y + y e, three FMAs, 6 operations. (The kernel's __drcp_rn adds a
-# rounding step, two FMAs, for the correctly rounded result: work of the
-# implementation, not of the function.) So 7 - 1 + 8, 10 - 1 + 6 and
-# 9 - 1 + 6.
-GRIDGEN_F64_OPS_PER_PAIR = {"charge": 14, "ljr": 15, "lja": 14}
+# double precision in place of its one operation, and the work shared
+# across the y x z tile of points that a thread owns. FP64 has no
+# special-function pipe: a MUFU.RSQ64H / MUFU.RCP64H gives a seed of 20
+# fraction bits from the high word (on the MUFU pipe, not counted), and the
+# fewest FP64 operations (an FMA two) that finish it to an ulp (the seed's
+# error cubed is below 2^-57) are one third-order Newton step: for the
+# rsqrt, e = 1 - x y^2, p = 1/2 + 3/8 e, y + (e y) p, a multiply, two
+# FMAs, a multiply and an FMA, 8 operations; for the reciprocal,
+# e = 1 - x y, e = e + e e, y = y + y e, three FMAs, 6 operations. Shared:
+# the clamp (r^2 is at least the z-column's dx^2 + dy^2, so an integer
+# test a column-atom decides for the column's points) and dz, dz^2 (the
+# same for every row of an x-plane), so r^2 is one add a pair. So 1 + 8 +
+# 2, 1 + 6 + 3 + 2 and 1 + 6 + 2 + 2; per column-atom dy and dx^2 + dy^2
+# (3), per z-line-atom of an x-plane dz and dz^2 (2).
+GRIDGEN_F64_OPS_PER_PAIR = {"charge": 11, "ljr": 12, "lja": 11}
+GRIDGEN_F64_OPS_PER_COLUMN_ATOM = 3
+GRIDGEN_F64_OPS_PER_ZLINE_ATOM = 2
+# the count with the work shared along z only and the clamp on every
+# pair, as the float32 count above
+GRIDGEN_F64_OPS_PER_PAIR_COLUMN = {"charge": 14, "ljr": 15, "lja": 14}
 # FP32 operations per pair that the derivative kernel's function needs,
 # every multiply, add, subtract and max counted once (an FMA is two), with
 # the work shared: 3 for the displacement, 6 for the clamped r^2, 0 / 4 / 3
@@ -119,9 +127,13 @@ DERIVS_OPS_PER_PAIR = {"charge": 145, "ljr": 149, "lja": 148}
 # Kernel times per grid (charge, ljr, lja) before both kernels were
 # redesigned: one point per thread, the cascade unfolded. NVIDIA H100 80GB
 # HBM3, 700.00 W, this script's kernel_check at the same shapes.
+# The float64 values kernel's times before its own design (libdevice's double
+# rsqrt() and __drcp_rn, the clamp on every pair): this script's
+# float64_kernels on the same card and power limit.
 PREVIOUS_MS = {
     "gridgen_values": {"charge": 7.005, "ljr": 8.717, "lja": 7.880},
-    "gridgen_derivs": {"charge": 100.945, "ljr": 103.532, "lja": 100.243}}
+    "gridgen_derivs": {"charge": 100.945, "ljr": 103.532, "lja": 100.243},
+    "gridgen_values_f64": {"charge": 15.862, "ljr": 16.418, "lja": 15.611}}
 # Ragged shapes for both kernels: grids and atom counts that are multiples
 # of no tile, block or partial, down to one point and one atom
 RAGGED_COUNTS = ((1, 1, 1), (2, 3, 5), (5, 7, 3), (3, 4, 130))
@@ -157,6 +169,21 @@ BPMF_X_CHUNK = 16
 DERIV_CHECK_PLANES = 3   # x-planes at each of the grid's start, middle, end
 FAR_FIELD = 0.3          # nm from every receptor atom
 F64_GATE = 1e-10         # float64 kernels against their float64 twins
+# float64 K1's ulps against the correctly rounded value: 1/sqrt(r^2) and
+# 1/r^2 within one (a faithful rounding), so K / r^6 = (1/r^2)^2 (1/r^2)
+# and K / r^12 = ((1/r^2)^2)^3 within what their 2 and 5 roundings add:
+# 3 x 2^-52 + 2 x 2^-53 and 6 x 2^-52 + 5 x 2^-53 relative, 8 and 17 ulps
+F64_RECIPROCAL_ULPS = 1.0
+F64_PAIR_ULPS = {"charge": 1.0, "ljr": 17.0, "lja": 8.0}
+# the MUFU seeds' worst relative error, rounded up to a power of two, that
+# the host tests start the Newton steps from: float64_reciprocal_probe
+# read 2^-20.15 (rsqrt) and 2^-19.96 (reciprocal) on an NVIDIA H100 80GB
+# HBM3 at 700.00 W
+F64_SEED_REL_ERR = {"rsqrt": 2.0 ** -19, "rcp": 2.0 ** -19}
+# a cap that is a power of two and far above every single-atom value: u =
+# value / cap is exact and so small that tanh(u) rounds to u, and cap * u
+# gives the value back unchanged
+PAIR_ULPS_CAP = 2.0 ** 300
 # the out-of-core path: the reference's tiled stress box
 # (test_bspline_tiled_highres.py:46-57, bench_canonical.py:50-52), centred
 # on the ligand
@@ -518,27 +545,72 @@ _SASS_KINDS = ("FFMA", "FMUL", "FADD", "MUFU", "LDS", "DFMA", "DMUL", "DADD")
 _SASS_FP64 = ("DFMA", "DMUL", "DADD", "DSETP", "DMNMX")
 
 
+def _hot_path(code, lo, hi):
+    """Positions of the shortest path of instructions from ``lo`` to the
+    back edge at ``hi`` (a branch to ``lo``), inside [lo, hi]; None if
+    there is none. ``code`` holds (opcode, target position or None,
+    conditional) per instruction."""
+    parent = {lo: None}
+    frontier = [lo]
+    while frontier and hi not in parent:
+        nxt = []
+        for n in frontier:
+            op, target, conditional = code[n]
+            kind = op.split(".")[0]
+            succ = []
+            if kind == "BRA":
+                if target is not None and lo < target <= hi:
+                    succ.append(target)
+                if conditional:
+                    succ.append(n + 1)
+            elif kind not in ("EXIT", "RET") or conditional:
+                succ.append(n + 1)
+            for m in succ:
+                if m <= hi and m not in parent:
+                    parent[m] = n
+                    nxt.append(m)
+        frontier = nxt
+    if hi not in parent:
+        return None
+    path, n = [], hi
+    while n is not None:
+        path.append(n)
+        n = parent[n]
+    return path[::-1]
+
+
 def inner_loop_counts(sass_text):
     """Per kernel of a ``cuobjdump -sass`` listing, the instructions of
     its hottest loop by kind: of the innermost loops (a backward branch
     with no other backward branch inside) that hold a MUFU instruction
     (one rsqrt or reciprocal per pair), the one with the most of them,
-    which is the unrolled atom loop. Returns {function: {"instructions",
-    kinds..., "other", "other_by_opcode", "per_pair"}}; a function without
+    which is the unrolled atom loop. Where the loop body branches (float64
+    K1 runs a group of atoms with the clamp only when a lane lies near
+    one), the shortest path from its top to its back edge is counted: the
+    side that the grid's pairs take. Returns {function: {"instructions",
+    kinds..., "other", "other_by_opcode", "mufu_by_opcode", "per_pair",
+    "fp64", "fp64_per_pair", "fp64_ops_per_pair"}}; a function without
     such a loop is left out."""
-    out, name, code = {}, None, []
+    out, name, code, addrs = {}, None, [], []
 
     def close():
         if name is None:
             return
-        spans = [(tgt, at) for at, (op, tgt) in enumerate(code)
-                 if tgt is not None and tgt <= at]
+        index = {addr: n for n, addr in enumerate(addrs)}
+        resolved = [(op, index.get(tgt) if tgt is not None else None, cond)
+                    for op, tgt, cond in code]
+        spans = [(tgt, at) for at, (op, tgt, _) in enumerate(resolved)
+                 if op.split(".")[0] == "BRA" and tgt is not None
+                 and tgt <= at]
         best = None
         for lo, hi in spans:
             if any((a, b) != (lo, hi) and lo <= a and b <= hi
                    for a, b in spans):
                 continue
-            ops = [op for op, _ in code[lo:hi + 1]]
+            path = _hot_path(resolved, lo, hi)
+            if path is None:
+                continue
+            ops = [resolved[n][0] for n in path]
             n_mufu = sum(op.startswith("MUFU") for op in ops)
             if n_mufu and (best is None or n_mufu > best[0]):
                 best = (n_mufu, ops)
@@ -547,51 +619,55 @@ def inner_loop_counts(sass_text):
         n_mufu, ops = best
         kinds = {k: sum(op.split(".")[0] == k for op in ops)
                  for k in _SASS_KINDS}
-        other = {}
+        other, mufu = {}, {}
         for op in ops:
             if op.split(".")[0] not in _SASS_KINDS:
                 other[op.split(".")[0]] = other.get(op.split(".")[0], 0) + 1
+            if op.startswith("MUFU"):
+                mufu[op] = mufu.get(op, 0) + 1
         fp64 = sum(op.split(".")[0] in _SASS_FP64 for op in ops)
         # FP64 operations, an FMA two (GRIDGEN_F64_OPS_PER_PAIR's count)
         flops = fp64 + sum(op.split(".")[0] == "DFMA" for op in ops)
         out[name] = {"instructions": len(ops), **kinds,
                      "other": len(ops) - sum(kinds.values()),
-                     "other_by_opcode": other,
+                     "other_by_opcode": other, "mufu_by_opcode": mufu,
                      "per_pair": len(ops) / n_mufu,
                      "fp64": fp64, "fp64_per_pair": fp64 / n_mufu,
                      "fp64_ops_per_pair": flops / n_mufu}
 
-    addr_index = {}
     for line in sass_text.splitlines():
         found = re.search(r"Function : (\S+)", line)
         if found:
             close()
-            name, code, addr_index = found.group(1), [], {}
+            name, code, addrs = found.group(1), [], []
             continue
         found = re.match(
-            r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)"
+            r"\s*/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][\w.]*)"
             r"([^;]*);", line)
         if not found or name is None:
             continue
-        addr, op, operands = found.groups()
-        addr_index[int(addr, 16)] = len(code)
+        addr, guard, op, operands = found.groups()
         target = None
         if op.split(".")[0] == "BRA":
             hexes = re.findall(r"0x([0-9a-f]+)", operands)
             if hexes:
-                # a backward target is already indexed; a forward one is
-                # not and stays None
-                target = addr_index.get(int(hexes[-1], 16))
-        code.append((op, target))
+                target = int(hexes[-1], 16)
+        # a guard other than @PT, or a predicate operand (BRA.U UP0, ...)
+        conditional = bool(
+            (guard and guard.strip() not in ("@PT", "@UPT"))
+            or re.search(r"(?<![\w.])!?U?P[0-7]\b", operands))
+        addrs.append(int(addr, 16))
+        code.append((op, target, conditional))
     close()
     return out
 
 
 def phase_sass():
-    """A diagnostic, gating nothing: instruction counts of each kernel's
-    atom loop, float32 and float64 instantiations, from cuobjdump where
-    the toolkit has it (for float64, the FP64 instructions a pair issues
-    beside GRIDGEN_F64_OPS_PER_PAIR, the fewest its function needs)."""
+    """Instruction counts of each kernel's atom loop, float32 and float64
+    instantiations, from cuobjdump where the toolkit has it (for float64,
+    the FP64 instructions a pair issues beside GRIDGEN_F64_OPS_PER_PAIR,
+    the fewest its function needs). A diagnostic, but for one gate: float64
+    K1's loop finishes its MUFU seeds itself, with no CALL."""
     from openmmgridforce_tpu_torch import cuda_build
 
     for name in cuda_build.LIBRARIES:
@@ -615,6 +691,15 @@ def phase_sass():
               "fp64_ops_per_pair_needed": (GRIDGEN_F64_OPS_PER_PAIR
                                            if name == "gridgen_values"
                                            else None)})
+        if name == "gridgen_values":
+            check(set(per_type_f64) == set(GRID_TYPES), "float64 K1: no "
+                  "atom loop with a MUFU seed in the listing")
+            for gt, loop in per_type_f64.items():
+                check("CALL" not in loop["other_by_opcode"]
+                      and all(op.endswith("64H")
+                              for op in loop["mufu_by_opcode"]),
+                      f"float64 K1 {gt}: the atom loop calls out or seeds "
+                      f"otherwise: {loop}")
 
 
 def ragged_case(grid_type, counts, n_atoms, seed=53, device="cpu",
@@ -1956,12 +2041,145 @@ def _build_spills(name, f64):
     return spilled
 
 
+def exact_inverse_power(r2, grid_type):
+    """The correctly rounded float64 of max(r2, 1e-12)^(-p/2), p = 1 / 12 /
+    6, from 60-digit decimal arithmetic."""
+    import decimal
+
+    with decimal.localcontext() as ctx:
+        ctx.prec = 60
+        d = max(decimal.Decimal(float(r2)), decimal.Decimal(1e-12))
+        if grid_type == "charge":
+            return float(1 / d.sqrt())
+        return float(1 / d ** {"ljr": 6, "lja": 3}[grid_type])
+
+
+def ulps(got, ref):
+    """|got - ref| in units of the last place of ref (float64 arrays)."""
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    return np.abs(got - ref) / np.spacing(np.abs(ref))
+
+
+def reciprocal_probe_points():
+    """r^2 values for float64_reciprocal_probe: log-uniform over the
+    range the kernel sees (1e-12 to 1e4), the ends, each power of two in
+    it with its neighbours, and mantissas whose low word is all ones (the
+    seed reads only the high word)."""
+    rng = np.random.default_rng(8)
+    pts = [10.0 ** rng.uniform(-12, 4, 4096), np.array([1e-12, 1e4])]
+    two = 2.0 ** np.arange(-39, 14)
+    pts += [two, np.nextafter(two, 0), np.nextafter(two, np.inf)]
+    bits = (10.0 ** rng.uniform(-12, 4, 512)).view(np.uint64)
+    pts.append((bits | np.uint64(0xFFFFFFFF)).view(np.float64))
+    x = np.concatenate(pts)
+    return np.sort(x[(x >= 1e-12) & (x <= 1e4)])
+
+
+def float64_reciprocal_probe(torch):
+    """float64 K1's reciprocals alone on the card over
+    reciprocal_probe_points: the MUFU seeds' relative error (a diagnostic
+    of the card) and the finished 1/sqrt(x) and 1/x against the correctly
+    rounded values in ulps. Returns the line's facts."""
+    from openmmgridforce_tpu_torch.ops.cuda_gridgen import reciprocal_probe
+
+    x = reciprocal_probe_points()
+    got = reciprocal_probe(torch.tensor(x, device="cuda")).cpu().numpy()
+    ref_rsqrt = np.array([exact_inverse_power(v, "charge") for v in x])
+    ref_rcp = 1.0 / x                       # IEEE division rounds correctly
+    seed_rsqrt = np.abs(got[:, 0] * np.sqrt(x) - 1.0)
+    seed_rcp = np.abs(got[:, 1] * x - 1.0)
+    out = {"phase": "float64_reciprocal_probe", "points": int(x.size),
+           "r2_range": [float(x[0]), float(x[-1])],
+           "seed_rel_err": {"rsqrt": float(seed_rsqrt.max()),
+                            "rcp": float(seed_rcp.max())},
+           "seed_rel_err_log2": {
+               "rsqrt": float(np.log2(seed_rsqrt.max())),
+               "rcp": float(np.log2(seed_rcp.max()))},
+           "seed_low_word_zero": bool(
+               (got[:, :2].view(np.uint64) & np.uint64(0xFFFFFFFF) == 0)
+               .all()),
+           "max_ulps": {"rsqrt": float(ulps(got[:, 2], ref_rsqrt).max()),
+                        "rcp": float(ulps(got[:, 3], ref_rcp).max())},
+           "correctly_rounded_share": {
+               "rsqrt": float((got[:, 2] == ref_rsqrt).mean()),
+               "rcp": float((got[:, 3] == ref_rcp).mean())}}
+    emit(out)
+    return out
+
+
+def pair_ulp_cases():
+    """Single-atom offsets (label, (ax, ay, az)) from a grid point at the
+    origin for float64_pair_ulps. Every coordinate is a float32, on one
+    axis or the same on all three, so r^2 is exact in float64 for the
+    kernel and the twin alike; the cases reach the clamp (on the atom, just
+    below and just above r^2 = 1e-12), sweep r from 1e-6 to 100 nm, and
+    take both sides of the kernel's near-line test (an atom on the point's
+    z-line is near, an oblique one farther than 1e-6 nm is not)."""
+    f32 = np.float32
+    a = f32(1e-6)
+    cases = [("on the atom", (0.0, 0.0, 0.0)),
+             ("just below the clamp", (0.0, 0.0, float(a))),
+             ("just above the clamp",
+              (0.0, 0.0, float(np.nextafter(a, f32(1)))))]
+    b = f32(np.sqrt(1e-12 / 3))
+    for n in (-2, -1, 0, 1, 2):
+        c = b
+        for _ in range(abs(n)):
+            c = np.nextafter(c, f32(np.sign(n)))
+        cases.append((f"oblique near the clamp {n:+d}", (float(c),) * 3))
+    for r in np.geomspace(1e-6, 100.0, 25)[1:]:
+        cases.append((f"on the line, r {r:.3g}", (0.0, 0.0, float(f32(r)))))
+        cases.append((f"oblique, r {r:.3g}",
+                      (float(f32(r / np.sqrt(3))),) * 3))
+    return cases
+
+
+def float64_pair_ulps(torch, device="cuda"):
+    """float64 K1 on single atoms, one term and tanh at its linear end
+    (strength 1, a cap of 2^300), against the float64 twin and against
+    the correctly rounded K / r^p, in ulps per grid type. On the CPU the
+    wrapper's twin stands in for the kernel. Returns the facts (the gate
+    is the caller's)."""
+    from openmmgridforce_tpu_torch.ops.cuda_gridgen import (
+        gridgen_values, gridgen_values_plain)
+
+    geom = ((1, 1, 1), (0.1, 0.1, 0.1), (0.0, 0.0, 0.0))
+    cases = pair_ulp_cases()
+    per_type = {}
+    for gt in GRID_TYPES:
+        got, twin, exact = [], [], []
+        for _, (ax, ay, az) in cases:
+            atom = torch.tensor([[-ax, -ay, -az, 1.0]], dtype=torch.float64,
+                                device=device)
+            got.append(float(gridgen_values(atom, *geom, gt,
+                                            PAIR_ULPS_CAP)[0, 0, 0]))
+            twin.append(float(gridgen_values_plain(atom, *geom, gt,
+                                                   PAIR_ULPS_CAP)[0, 0, 0]))
+            exact.append(exact_inverse_power(ax * ax + ay * ay + az * az,
+                                             gt))
+        k_e, t_e, k_t = ulps(got, exact), ulps(twin, exact), ulps(got, twin)
+        worst = int(k_e.argmax())
+        per_type[gt] = {"kernel_vs_exact": float(k_e.max()),
+                        "twin_vs_exact": float(t_e.max()),
+                        "kernel_vs_twin": float(k_t.max()),
+                        "worst_case": cases[worst][0],
+                        "clamp_cases_vs_exact": [float(v) for v in k_e[:3]],
+                        "gate": F64_PAIR_ULPS[gt]}
+    out = {"phase": "float64_pair_ulps", "device": device,
+           "cases": len(cases), "per_grid_type": per_type}
+    emit(out)
+    return out
+
+
 def phase_float64_kernels(torch, rec, rec_crd, counts, origin, sm_count):
     """Both kernels' float64 instantiations against their float64 twins:
     on the ragged shapes, and on the bench box (K1 over the whole grid, K2
     on slabs of x-planes at the grid's start, middle and end, the full
     float64 twin of K2 taking minutes); the cap exactly on an atom. Times
-    each over the whole grid beside its FP64 bound. Returns the kernels
+    each over the whole grid beside its FP64 bound (K1 also beside its
+    time before its float64 design and the bound with the work shared
+    along z only and the clamp on every pair). Holds K1's reciprocals (float64_reciprocal_probe) and
+    single pairs (float64_pair_ulps) to their ulps. Returns the kernels
     line's facts per kernel."""
     from openmmgridforce_tpu_torch.ops import cuda_gridgen, cuda_gridgen_derivs
     from openmmgridforce_tpu_torch.ops.cuda_gridgen import (
@@ -2022,18 +2240,25 @@ def phase_float64_kernels(torch, rec, rec_crd, counts, origin, sm_count):
         err = float((got - ref).abs().max())
         ms = _cuda_ms(torch, lambda: gridgen_values(*args), 3)
         plain_ms = _cuda_ms(torch, lambda: gridgen_values_plain(*args), 1)
-        bound = max((pairs * GRIDGEN_F64_OPS_PER_PAIR[gt] + columns
-                     * GRIDGEN_OPS_PER_COLUMN_ATOM) / H100_FP64_FLOPS,
-                    (atoms.numel() + n_points) * 8 / H100_BYTES_PER_S)
-        # the bound before the double rsqrt / reciprocal were counted in
-        # full (one operation each, the float32 count)
-        bound_one_op = (pairs * GRIDGEN_OPS_PER_PAIR[gt] + columns
-                        * GRIDGEN_OPS_PER_COLUMN_ATOM) / H100_FP64_FLOPS
+        zlines = counts[0] * counts[2] * atoms.shape[0]
+        bytes_s = (atoms.numel() + n_points) * 8 / H100_BYTES_PER_S
+        bound = max((pairs * GRIDGEN_F64_OPS_PER_PAIR[gt]
+                     + columns * GRIDGEN_F64_OPS_PER_COLUMN_ATOM
+                     + zlines * GRIDGEN_F64_OPS_PER_ZLINE_ATOM)
+                    / H100_FP64_FLOPS, bytes_s)
+        # the count shared along z only, with the clamp on every pair
+        bound_column = max((pairs * GRIDGEN_F64_OPS_PER_PAIR_COLUMN[gt]
+                            + columns * GRIDGEN_OPS_PER_COLUMN_ATOM)
+                           / H100_FP64_FLOPS, bytes_s)
         per_type["gridgen_values"][gt] = {
             "max_abs_err": err, "rel_err": err / float(ref.abs().max()),
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": 1e3 * bound,
-            "bound_ms_one_op_rsqrt": 1e3 * bound_one_op,
+            "ms": ms, "previous_ms": PREVIOUS_MS["gridgen_values_f64"][gt],
+            "plain_ms": plain_ms, "bound_ms": 1e3 * bound,
             "bound_share": 1e3 * bound / ms,
+            "bound_ms_column_count": 1e3 * bound_column,
+            "bound_share_column_count": 1e3 * bound_column / ms,
+            "previous_bound_share_column_count": 1e3 * bound_column
+            / PREVIOUS_MS["gridgen_values_f64"][gt],
             "bound_pipe": "fp64", "gpairs_per_s": pairs / ms / 1e6,
             "spill_bytes": _build_spills("gridgen_values", True),
             **_launch_facts("gridgen_values", cuda_gridgen, counts, gt,
@@ -2079,6 +2304,8 @@ def phase_float64_kernels(torch, rec, rec_crd, counts, origin, sm_count):
     on_atom = torch.tensor([[0.1, 0.1, 0.1, 1.0]], dtype=f64, device="cuda")
     cap_val = float(gridgen_values(on_atom, (3, 3, 3), (0.1,) * 3,
                                    (0.0,) * 3, "ljr", 500.0)[1, 1, 1])
+    probe = float64_reciprocal_probe(torch)
+    pair = float64_pair_ulps(torch)
     emit({"phase": "float64_kernels", "ragged_cases_per_kernel":
           len(RAGGED_COUNTS) * len(RAGGED_ATOMS) * len(GRID_TYPES),
           "ragged_worst_rel_err": worst, "misses": misses, "counts": counts,
@@ -2086,6 +2313,12 @@ def phase_float64_kernels(torch, rec, rec_crd, counts, origin, sm_count):
           "per_grid_type": per_type})
     check(not misses, f"float64 kernels: {misses}")
     check(cap_val == 500.0, f"float64 cap on atom gave {cap_val}")
+    check(max(probe["max_ulps"].values()) <= F64_RECIPROCAL_ULPS,
+          f"float64 reciprocals: {probe['max_ulps']} ulps")
+    for gt, r in pair["per_grid_type"].items():
+        check(r["kernel_vs_exact"] <= F64_PAIR_ULPS[gt],
+              f"float64 values {gt}: {r['kernel_vs_exact']} ulps "
+              f"({r['worst_case']})")
     for name, rows in per_type.items():
         for gt, r in rows.items():
             check(r["rel_err"] < F64_GATE,

@@ -70,14 +70,54 @@
 //   are 146 KB and live in L2, and shared memory sees one broadcast load
 //   per kPoints pairs per warp: there is nothing to win.
 //
-// Float64. The kernel is a template on the scalar type; the float64
-// instantiation (gridgen_values_launch_f64) takes a [A, 4] float64 atom
-// table. FP64 has no special-function pipe, so 1/r is the double rsqrt()
-// and 1/r^2 a rounded reciprocal, both a few FP64 operations; the bound is
-// the FP64 pipe (about 34 TFLOP/s on an H100 SXM, half the FP32 rate). Its
-// launch shape is its own (kThreads64 ... kMinBlocks64): the float32
-// constants were tuned for 48 registers a thread, which double values
-// would overrun.
+// Float64 (gridgen_values_launch_f64, a [A, 4] float64 atom table) has a
+// body of its own, values_f64. FP64 has no special-function pipe and
+// half the FP32 rate: 64 FP64 lanes an SM, so a warp's FP64 instruction
+// holds its scheduler's FP64 unit for 2 clocks, and the FP64 instructions
+// a pair set the pace (34 TFLOP/s on an H100 SXM). libdevice's double
+// rsqrt() and __drcp_rn spend about 20 more instructions a pair on
+// special cases (a guarded slow-path CALL and its selects), which the
+// clamped r^2 never reaches. So:
+// - 1/sqrt(r^2) and 1/r^2 are written out: a MUFU.RSQ64H / MUFU.RCP64H
+//   seed from the high word (20 fraction bits in the result's high word;
+//   on an NVIDIA H100 80GB HBM3 at 700.00 W its relative error reached
+//   2^-20.15 / 2^-19.96 over r^2 in [1e-12, 1e4]), then kNewton64
+//   third-order Newton steps in FMAs. rsqrt: e = 1 - x y^2 (y^2 exact,
+//   since the seed has 21 significant bits), y + (e y)(1/2 + 3/8 e): 5
+//   FP64 instructions. Reciprocal: e = 1 - x y, e = e + e^2, y + y e: 3.
+//   One step leaves 2.5 eps^3 and eps^3 of the seed's eps, below 2^-56,
+//   so both are within an ulp of the correctly rounded value (on that
+//   card 99.96% / 98.8% of them correctly rounded; chip_smoke.py's
+//   float64_reciprocal_probe and float64_pair_ulps measure it).
+// - The clamp is shared by a z-column. r^2 = fma(dz, dz, dx^2 + dy^2) is
+//   at least dx^2 + dy^2, so only an atom within 1e-6 nm of a thread's
+//   z-line can reach the clamp. Per group of kUnroll64 atoms a thread
+//   tests its lines on the high words (integer compares, which can only
+//   err towards clamping), the warp votes, and the group runs without
+//   clamps unless a lane is near; then it runs with the exact clamp on
+//   every pair. Near an atom the clamp gives exactly the float32 path's
+//   r^2 = 1e-12, and the sixth power 1e72 stays finite.
+// - A thread owns kRows64 x kPoints64 points (rows along y, points along
+//   z): dx and dx^2 are shared by the tile, dy and dx^2 + dy^2 by a row,
+//   dz by a column of the tile. A pair then issues fma(dz, dz, dxy2), the
+//   Newton steps, the power and fma(K, c, acc): 7 / 8 / 7 FP64
+//   instructions, plus the shared ones (7.56 / 8.56 / 7.56 in all in the
+//   machine code, 10.0 / 10.9 / 9.9 instructions). The sum is one
+//   register a point (a 9k-term float64 sum rounds to about 1e-12 of its
+//   terms' sum, under the 1e-10 gate), the atom tile is padded with far
+//   atoms of zero strength to whole groups, and outputs go straight to
+//   memory (12 MB a grid: microseconds).
+// - Shipped: 4 x 8 points, groups of 1 atom, room for 2 blocks an SM
+//   (214-246 registers, no spills). kernel_variants.py on an NVIDIA H100
+//   80GB HBM3 at 700.00 W, a bench-box grid (1.49e6 points x 9,133 atoms)
+//   per grid type: 8.31 / 8.69 / 7.67 ms; 4 z-points a thread (groups of
+//   4 atoms, 4 blocks) 8.95 / 9.13 / 8.38; the clamp on every pair 9.70 /
+//   9.75 / 8.89; two Newton steps 13.21 / 11.41 / 10.44; libdevice's
+//   rsqrt() and __drcp_rn with the clamp on every pair 16.76 / 17.77 /
+//   17.28 (the loop before this design, libdevice's in 1 x 4 tiles with
+//   partial sums, took 15.86 / 16.42 / 15.61); 2 x 8, 3 x 4,
+//   4 x 4 and 8 x 4 tiles and groups of 2 atoms 1-2% slower in sum, room
+//   for 3 blocks (168 registers) 8%, 256 threads a block 25%.
 
 #include <cuda_runtime.h>
 
@@ -97,21 +137,22 @@ constexpr int kUnroll = 4;
 // loop best (unasked it takes 55-56 and the kernel runs 2-5% slower)
 constexpr int kMinBlocks = 10;
 
-// the float64 instantiation's launch: 4 blocks an SM leave it up to 128
-// registers a thread for the doubled accumulators and the double rsqrt's
-// Newton steps (it takes 65-69). Timed on an H100 SXM at 700 W
-// (kernel_variants.py): 2 or 8 points a thread are 6% and 9% slower, 256
-// threads 4%, no unrolling 5%, room for 2 or 6 blocks the same; unrolling
-// by 4 is 1% faster than by 2
+// the float64 body's launch and tile (values_f64), chosen with
+// kernel_variants.py: the note above
 constexpr int kThreads64 = 128;
-constexpr int kPoints64 = 4;
+constexpr int kRows64 = 4;
+constexpr int kPoints64 = 8;
 constexpr int kTile64 = 128;
-constexpr int kAtomBlock64 = 128;
-constexpr int kUnroll64 = 4;
-constexpr int kMinBlocks64 = 4;
+// atoms a group: the unit of the near-line vote and of the unrolling
+constexpr int kUnroll64 = 1;
+constexpr int kMinBlocks64 = 2;
+// third-order Newton steps after the MUFU seed
+constexpr int kNewton64 = 1;
+// 1: clamp every pair and skip the vote
+constexpr int kClampEvery64 = 0;
 
 static_assert(kTile % kThreads == 0 && kTile % kAtomBlock == 0, "tile");
-static_assert(kTile64 % kThreads64 == 0 && kTile64 % kAtomBlock64 == 0,
+static_assert(kTile64 % kThreads64 == 0 && kTile64 % kUnroll64 == 0,
               "tile");
 
 // one MUFU.RSQ or MUFU.RCP; the argument is clamped to a normal number
@@ -138,8 +179,9 @@ struct Real;
 template <>
 struct Real<float> {
   using Atom = float4;
-  static constexpr int threads = kThreads, points = kPoints, tile = kTile,
-                       atom_block = kAtomBlock, min_blocks = kMinBlocks;
+  static constexpr int threads = kThreads, rows = 1, points = kPoints,
+                       tile = kTile, atom_block = kAtomBlock,
+                       min_blocks = kMinBlocks;
   static constexpr float r2_min = 1e-12f;
   static __device__ __forceinline__ float mul_rn(float a, float b) {
     return __fmul_rn(a, b);
@@ -167,36 +209,45 @@ struct Real<float> {
 template <>
 struct Real<double> {
   using Atom = Atom64;
-  static constexpr int threads = kThreads64, points = kPoints64,
-                       tile = kTile64, atom_block = kAtomBlock64,
-                       min_blocks = kMinBlocks64;
-  static constexpr double r2_min = 1e-12;
-  static __device__ __forceinline__ double mul_rn(double a, double b) {
-    return __dmul_rn(a, b);
-  }
-  static __device__ __forceinline__ double add_rn(double a, double b) {
-    return __dadd_rn(a, b);
-  }
-  static __device__ __forceinline__ double sub_rn(double a, double b) {
-    return __dsub_rn(a, b);
-  }
-  static __device__ __forceinline__ double fma(double a, double b,
-                                               double c) {
-    return ::fma(a, b, c);
-  }
-  static __device__ __forceinline__ double max(double a, double b) {
-    return fmax(a, b);
-  }
-  static __device__ __forceinline__ double rsqrt(double x) {
-    return ::rsqrt(x);
-  }
-  static __device__ __forceinline__ double rcp(double x) {
-    return __drcp_rn(x);
-  }
-  static __device__ __forceinline__ double tanh(double x) {
-    return ::tanh(x);
-  }
+  static constexpr int threads = kThreads64, rows = kRows64,
+                       points = kPoints64, min_blocks = kMinBlocks64;
 };
+
+// float64 seeds: MUFU.RSQ64H / MUFU.RCP64H of the argument's high word,
+// 20 fraction bits in the result's high word, zeros in its low word
+__device__ __forceinline__ double rsqrt_seed(double x) {
+  double y;
+  asm("rsqrt.approx.ftz.f64 %0, %1;" : "=d"(y) : "d"(x));
+  return y;
+}
+__device__ __forceinline__ double rcp_seed(double x) {
+  double y;
+  asm("rcp.approx.ftz.f64 %0, %1;" : "=d"(y) : "d"(x));
+  return y;
+}
+
+// 1/sqrt(x) and 1/x for normal x > 0, within an ulp (the source note)
+__device__ __forceinline__ double rsqrt64(double x) {
+  double y = rsqrt_seed(x);
+#pragma unroll
+  for (int s = 0; s < kNewton64; ++s) {
+    // y * y is exact at the first step (the seed has 21 significant
+    // bits), so e = 1 - x y^2 rounds once
+    const double e = ::fma(-x, y * y, 1.0);
+    y = ::fma(e * y, ::fma(e, 0.375, 0.5), y);
+  }
+  return y;
+}
+__device__ __forceinline__ double rcp64(double x) {
+  double y = rcp_seed(x);
+#pragma unroll
+  for (int s = 0; s < kNewton64; ++s) {
+    double e = ::fma(-x, y, 1.0);
+    e = ::fma(e, e, e);
+    y = ::fma(y, e, y);
+  }
+  return y;
+}
 
 // thread-tile t: its row (i * ny + j), its first k, its first flat index
 struct TileStart {
@@ -214,12 +265,14 @@ __device__ __forceinline__ TileStart tile_start(long long t,
   return s;
 }
 
-template <int GRID_TYPE, typename T>
-__global__ void __launch_bounds__(Real<T>::threads, Real<T>::min_blocks)
-gridgen_values_kernel(const typename Real<T>::Atom* __restrict__ atoms,
-                      int n_atoms, T* __restrict__ out, long long n_tiles,
-                      int ny, int nz, int tiles_per_row, int i0, int j0,
-                      int k0, T ox, T oy, T oz, T sx, T sy, T sz, T cap) {
+// the float32 body: one thread-tile is kPoints points of a z-column
+template <int GRID_TYPE>
+__device__ __forceinline__ void values_f32(
+    const float4* __restrict__ atoms, int n_atoms, float* __restrict__ out,
+    long long n_tiles, int ny, int nz, int tiles_per_row, int i0, int j0,
+    int k0, float ox, float oy, float oz, float sx, float sy, float sz,
+    float cap) {
+  using T = float;
   using R = Real<T>;
   constexpr int kThreadsT = R::threads, kPointsT = R::points,
                 kTileT = R::tile, kAtomBlockT = R::atom_block;
@@ -260,7 +313,7 @@ gridgen_values_kernel(const typename Real<T>::Atom* __restrict__ atoms,
       T part[kPointsT];
 #pragma unroll
       for (int p = 0; p < kPointsT; ++p) part[p] = T(0);
-#pragma unroll(sizeof(T) == 4 ? kUnroll : kUnroll64)
+#pragma unroll(kUnroll)
       for (int b = b0; b < b1; ++b) {
         const typename R::Atom at = tile[b];
         const T dx = R::sub_rn(gx, at.x);
@@ -317,10 +370,147 @@ gridgen_values_kernel(const typename Real<T>::Atom* __restrict__ atoms,
   for (int s = threadIdx.x; s < n_out; s += kThreadsT) dst[s] = stage[s];
 }
 
+// the pairs of one group of kUnroll64 atoms with the thread's tile;
+// CLAMP: r^2 >= 1e-12 on every pair
+template <int GRID_TYPE, bool CLAMP>
+__device__ __forceinline__ void group_f64(
+    const Atom64 (&at)[kUnroll64], const double (&dxy2)[kUnroll64][kRows64],
+    const double (&gz)[kPoints64], double (&acc)[kRows64][kPoints64]) {
+#pragma unroll
+  for (int u = 0; u < kUnroll64; ++u) {
+#pragma unroll
+    for (int p = 0; p < kPoints64; ++p) {
+      const double dz = gz[p] - at[u].z;
+#pragma unroll
+      for (int r = 0; r < kRows64; ++r) {
+        double r2 = ::fma(dz, dz, dxy2[u][r]);
+        if (CLAMP) r2 = r2 < 1e-12 ? 1e-12 : r2;   // r >= 1e-6 nm
+        double c;
+        if (GRID_TYPE == 0) {  // charge: K / r
+          c = rsqrt64(r2);
+        } else {
+          const double inv_r2 = rcp64(r2);
+          const double inv_r4 = inv_r2 * inv_r2;
+          if (GRID_TYPE == 1) {  // ljr: K / r^12
+            c = inv_r4 * inv_r4 * inv_r4;
+          } else {               // lja: K / r^6
+            c = inv_r4 * inv_r2;
+          }
+        }
+        acc[r][p] = ::fma(at[u].w, c, acc[r][p]);
+      }
+    }
+  }
+}
+
+// the float64 body: one thread-tile is kRows64 rows x kPoints64 points of
+// an x-plane; the tiles of a plane run z-fastest
+template <int GRID_TYPE>
+__device__ __forceinline__ void values_f64(
+    const Atom64* __restrict__ atoms, int n_atoms, double* __restrict__ out,
+    long long n_tiles, int ny, int nz, int tiles_per_row, int i0, int j0,
+    int k0, double ox, double oy, double oz, double sx, double sy,
+    double sz, double cap) {
+  __shared__ Atom64 tile[kTile64];
+  // 1e-12's high word: a line whose dx^2 + dy^2 has a larger one is
+  // farther than 1e-6 nm from the atom
+  constexpr int kR2MinHi = 0x3d719799;
+  // padding: zero strength, r^2 about 3e60, nothing overflows
+  const Atom64 far = {1e30, 1e30, 1e30, 0.0};
+
+  const long long t = (long long)blockIdx.x * kThreads64 + threadIdx.x;
+  const bool valid = t < n_tiles;
+  const int row_blocks = (ny + kRows64 - 1) / kRows64;
+  const long long tt = valid ? t : n_tiles - 1;
+  const long long rb = tt / tiles_per_row;
+  const int k = (int)(tt - rb * tiles_per_row) * kPoints64;
+  const long long i = rb / row_blocks;
+  const int j = (int)(rb - i * row_blocks) * kRows64;
+  // rounded multiply, then rounded add, as the reference forms the point
+  const double gx = __dadd_rn(ox, __dmul_rn((double)(i0 + i), sx));
+  double gy[kRows64], gz[kPoints64], acc[kRows64][kPoints64];
+#pragma unroll
+  for (int r = 0; r < kRows64; ++r)
+    gy[r] = __dadd_rn(oy, __dmul_rn((double)(j0 + j + r), sy));
+#pragma unroll
+  for (int p = 0; p < kPoints64; ++p) {
+    gz[p] = __dadd_rn(oz, __dmul_rn((double)(k0 + k + p), sz));
+#pragma unroll
+    for (int r = 0; r < kRows64; ++r) acc[r][p] = 0.0;
+  }
+
+  for (int a0 = 0; a0 < n_atoms; a0 += kTile64) {
+#pragma unroll
+    for (int l = threadIdx.x; l < kTile64; l += kThreads64)
+      tile[l] = a0 + l < n_atoms ? atoms[a0 + l] : far;
+    __syncthreads();
+    const int n_tile = min(kTile64, n_atoms - a0);
+#pragma unroll 1
+    for (int b = 0; b < n_tile; b += kUnroll64) {
+      Atom64 at[kUnroll64];
+      double dxy2[kUnroll64][kRows64];
+      bool near = false;
+#pragma unroll
+      for (int u = 0; u < kUnroll64; ++u) {
+        at[u] = tile[b + u];
+        const double dx = gx - at[u].x;
+        const double dx2 = dx * dx;
+#pragma unroll
+        for (int r = 0; r < kRows64; ++r) {
+          const double dy = gy[r] - at[u].y;
+          dxy2[u][r] = ::fma(dy, dy, dx2);
+          near |= __double2hiint(dxy2[u][r]) <= kR2MinHi;
+        }
+      }
+      if (kClampEvery64 || __any_sync(0xffffffffu, near))
+        group_f64<GRID_TYPE, true>(at, dxy2, gz, acc);
+      else
+        group_f64<GRID_TYPE, false>(at, dxy2, gz, acc);
+    }
+    __syncthreads();
+  }
+
+  if (!valid) return;
+#pragma unroll
+  for (int r = 0; r < kRows64; ++r) {
+#pragma unroll
+    for (int p = 0; p < kPoints64; ++p) {
+      if (j + r < ny && k + p < nz) {
+        const double u = acc[r][p] / cap;
+        const double th = u > 20.0 ? 1.0 : (u < -20.0 ? -1.0 : ::tanh(u));
+        out[(i * ny + j + r) * nz + k + p] = cap * th;
+      }
+    }
+  }
+}
+
+template <int GRID_TYPE, typename T>
+__global__ void __launch_bounds__(Real<T>::threads, Real<T>::min_blocks)
+gridgen_values_kernel(const typename Real<T>::Atom* __restrict__ atoms,
+                      int n_atoms, T* __restrict__ out, long long n_tiles,
+                      int ny, int nz, int tiles_per_row, int i0, int j0,
+                      int k0, T ox, T oy, T oz, T sx, T sy, T sz, T cap) {
+  if constexpr (sizeof(T) == 4)
+    values_f32<GRID_TYPE>(atoms, n_atoms, out, n_tiles, ny, nz,
+                          tiles_per_row, i0, j0, k0, ox, oy, oz, sx, sy, sz,
+                          cap);
+  else
+    values_f64<GRID_TYPE>(atoms, n_atoms, out, n_tiles, ny, nz,
+                          tiles_per_row, i0, j0, k0, ox, oy, oz, sx, sy, sz,
+                          cap);
+}
+
 // thread-tiles that cover one z-column
 template <typename T>
 int row_tiles(int nz) {
   return (nz + Real<T>::points - 1) / Real<T>::points;
+}
+
+// thread-tiles that cover the grid
+template <typename T>
+long long grid_tiles(int nx, int ny, int nz) {
+  return (long long)nx * ((ny + Real<T>::rows - 1) / Real<T>::rows) *
+         row_tiles<T>(nz);
 }
 
 template <int GRID_TYPE, typename T>
@@ -342,7 +532,7 @@ int launch_any(const void* atoms, int n_atoms, void* out, int nx, int ny,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (nx <= 0 || ny <= 0 || nz <= 0) return 0;
-  const long long n_tiles = (long long)nx * ny * row_tiles<T>(nz);
+  const long long n_tiles = grid_tiles<T>(nx, ny, nz);
   const long long blocks =
       (n_tiles + Real<T>::threads - 1) / Real<T>::threads;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
@@ -371,7 +561,7 @@ int resident_blocks(int* per_sm) {
 template <typename T>
 int launch_shape(int nx, int ny, int nz, int grid_type, long long* blocks,
                  int* threads, int* blocks_per_sm) {
-  const long long n_tiles = (long long)nx * ny * row_tiles<T>(nz);
+  const long long n_tiles = grid_tiles<T>(nx, ny, nz);
   *blocks = (n_tiles + Real<T>::threads - 1) / Real<T>::threads;
   *threads = Real<T>::threads;
   switch (grid_type) {
@@ -384,6 +574,19 @@ int launch_shape(int nx, int ny, int nz, int grid_type, long long* blocks,
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// the float64 reciprocals alone: per x, the rsqrt and reciprocal seeds
+// and the finished 1/sqrt(x) and 1/x of the atom loop
+__global__ void reciprocal_probe_kernel(const double* __restrict__ x, int n,
+                                        double* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const double v = x[i];
+  out[4 * i] = rsqrt_seed(v);
+  out[4 * i + 1] = rcp_seed(v);
+  out[4 * i + 2] = rsqrt64(v);
+  out[4 * i + 3] = rcp64(v);
 }
 
 }  // namespace
@@ -429,6 +632,20 @@ extern "C" int gridgen_values_launch_shape(int nx, int ny, int nz,
                                     blocks_per_sm)
              : launch_shape<float>(nx, ny, nz, grid_type, blocks, threads,
                                    blocks_per_sm);
+}
+
+// float64 x [n] -> out [n, 4]: the seeds of 1/sqrt(x) and 1/x (MUFU, from
+// the high word) and the values the float64 atom loop finishes from them
+extern "C" int gridgen_values_reciprocal_probe(const void* x, int n,
+                                               void* out, int device,
+                                               void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (n <= 0) return 0;
+  reciprocal_probe_kernel<<<(n + 127) / 128, 128, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const double*>(x), n, static_cast<double*>(out));
+  return (int)cudaGetLastError();
 }
 
 extern "C" const char* gridgen_values_error_string(int err) {

@@ -8,8 +8,8 @@ of ``chip_smoke.py`` and prints one JSON line per variant: registers,
 milliseconds per grid type, and the error against the plain twin (float32
 over the whole grid for the values kernel, float64 over slabs of x-planes
 for the derivative kernel). The ``*_f64`` lists vary the float64
-instantiation's launch constants (``k*64``) and time it with float64 atoms
-against the float64 twins. The first variant of each list is the source
+bodies' constants (``k*64``: launch shape, tile, Newton steps, clamp form)
+and lines, and time them with float64 atoms against the float64 twins. The first variant of each list is the source
 as it stands. It changes nothing in the package: it is how the shipped
 constants were chosen, and how to choose them again on another card.
 
@@ -65,15 +65,43 @@ VARIANTS = {
     ],
     "gridgen_values_f64": [
         ("as shipped", {}, []),
-        ("2 points per thread", {"kPoints64": 2}, []),
-        ("8 points per thread", {"kPoints64": 8, "kMinBlocks64": 2}, []),
-        ("room for 2 blocks per SM", {"kMinBlocks64": 2}, []),
-        ("room for 6 blocks per SM", {"kMinBlocks64": 6}, []),
-        ("atom loop not unrolled", {"kUnroll64": 1}, []),
-        ("atom loop unrolled by 2", {"kUnroll64": 2}, []),
-        ("256 threads per block",
-         {"kThreads64": 256, "kTile64": 256, "kAtomBlock64": 256,
-          "kMinBlocks64": 2}, []),
+        ("two Newton steps", {"kNewton64": 2}, []),
+        ("clamp on every pair, no vote", {"kClampEvery64": 1}, []),
+        # the float64 loop as it was before its own design, in this body
+        ("libdevice rsqrt() and __drcp_rn, clamp on every pair",
+         {"kClampEvery64": 1}, [
+             ("  double y = rsqrt_seed(x);\n",
+              "  return ::rsqrt(x);\n  double y = rsqrt_seed(x);\n"),
+             ("  double y = rcp_seed(x);\n",
+              "  return __drcp_rn(x);\n  double y = rcp_seed(x);\n")]),
+        ("1/r^2 from the rsqrt", {}, [
+            ("const double inv_r2 = rcp64(r2);",
+             "const double inv_r = rsqrt64(r2);\n"
+             "          const double inv_r2 = inv_r * inv_r;")]),
+        # the z-column tile of the design's first form
+        ("4 z-points a thread, groups of 4 atoms, room for 4 blocks",
+         {"kRows64": 1, "kPoints64": 4, "kUnroll64": 4, "kMinBlocks64": 4},
+         []),
+        ("y x z tile of 2 x 4 points, groups of 2, room for 4 blocks",
+         {"kRows64": 2, "kPoints64": 4, "kUnroll64": 2, "kMinBlocks64": 4},
+         []),
+        ("y x z tile of 2 x 8 points, groups of 2",
+         {"kRows64": 2, "kUnroll64": 2}, []),
+        ("y x z tile of 3 x 4 points, groups of 2, room for 3 blocks",
+         {"kRows64": 3, "kPoints64": 4, "kUnroll64": 2, "kMinBlocks64": 3},
+         []),
+        ("y x z tile of 4 x 4 points, groups of 2",
+         {"kPoints64": 4, "kUnroll64": 2}, []),
+        ("y x z tile of 4 x 4 points, groups of 2, 64 threads, room for 4",
+         {"kPoints64": 4, "kUnroll64": 2, "kThreads64": 64,
+          "kMinBlocks64": 4}, []),
+        ("y x z tile of 8 x 4 points", {"kRows64": 8, "kPoints64": 4}, []),
+        ("groups of 2 atoms", {"kUnroll64": 2}, []),
+        ("64 threads per block, room for 4 blocks",
+         {"kThreads64": 64, "kMinBlocks64": 4}, []),
+        ("256 threads per block, room for 1 block",
+         {"kThreads64": 256, "kTile64": 256, "kMinBlocks64": 1}, []),
+        ("room for 3 blocks per SM", {"kMinBlocks64": 3}, []),
     ],
     "gridgen_derivs_f64": [
         ("as shipped", {}, []),

@@ -99,6 +99,10 @@ def _declare(lib):
         ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_int),
         ctypes.POINTER(ctypes.c_int)]
     shape.restype = ctypes.c_int
+    probe = lib.gridgen_values_reciprocal_probe
+    probe.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                      ctypes.c_int, ctypes.c_void_p]
+    probe.restype = ctypes.c_int
     lib.gridgen_values_error_string.argtypes = [ctypes.c_int]
     lib.gridgen_values_error_string.restype = ctypes.c_char_p
     return lib
@@ -136,6 +140,25 @@ def launch_shape(counts, grid_type: str, device=0,
     first use; needs the card."""
     return _launch_shape(_library(), "gridgen_values", counts, grid_type,
                          device, dtype)
+
+
+def reciprocal_probe(x):
+    """The float64 kernel's reciprocals alone, on CUDA float64 ``x`` [n]
+    (r^2 values): [n, 4] of the MUFU seeds of 1/sqrt(x) and 1/x and the
+    values its Newton steps finish from them. A diagnostic of the card's
+    seeds, which the CPU has no copy of: raises for other tensors."""
+    if x.device.type != "cuda" or x.dtype != torch.float64 or x.ndim != 1:
+        raise ValueError("the reciprocal probe takes a CUDA float64 vector")
+    x = x.contiguous()
+    out = torch.empty((x.shape[0], 4), dtype=x.dtype, device=x.device)
+    lib = _library()
+    err = lib.gridgen_values_reciprocal_probe(
+        x.data_ptr(), x.shape[0], out.data_ptr(), x.device.index,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        raise RuntimeError("reciprocal probe launch failed: "
+                           + lib.gridgen_values_error_string(err).decode())
+    return out
 
 
 def _check_cuda_atoms(atoms, counts):

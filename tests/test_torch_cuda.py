@@ -247,6 +247,27 @@ def test_float64_kernels_match_their_twins(cuda, grid_type):
     assert _slot_err(got, ref) < 1e-10
 
 
+def test_float64_reciprocals_are_within_an_ulp(cuda):
+    """float64 K1's Newton-finished 1/sqrt(x) and 1/x from the card's MUFU
+    seeds, over r^2 in [1e-12, 1e4], against the correctly rounded values;
+    the seeds come in the MUFU's format (the low word zero) and within
+    the error the host tests start from."""
+    out = chip_smoke.float64_reciprocal_probe(torch)
+    assert max(out["max_ulps"].values()) <= chip_smoke.F64_RECIPROCAL_ULPS
+    assert out["seed_low_word_zero"]
+    for name, err in out["seed_rel_err"].items():
+        assert err <= chip_smoke.F64_SEED_REL_ERR[name], name
+
+
+def test_float64_pairs_are_within_their_ulps(cuda):
+    """float64 K1 on single atoms (the clamp from both sides, the far
+    field, both sides of the near-line vote) against the correctly rounded
+    K / r^p."""
+    out = chip_smoke.float64_pair_ulps(torch)
+    for gt, row in out["per_grid_type"].items():
+        assert row["kernel_vs_exact"] <= chip_smoke.F64_PAIR_ULPS[gt], gt
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_index_offset_gives_the_slice_of_the_whole_grid(cuda, dtype):
     """A launch at index offset (i0, j0, k0) computes exactly the same
