@@ -15,7 +15,13 @@ the compat API (openmmgridforce_tpu_torch.api) on the same complex in
 float64: grids auto-generated through Contexts on the receptor system
 (float64 values and derivatives, a tiled file), the ligand's getState on
 the card against a host Context, Langevin steps recorded and eager,
-minimizeEnergy, and a streamed Context on the tiled files. Then the
+minimizeEnergy, and a streamed Context on the tiled files.
+scaleout_path runs the port's torch.distributed scale-out through its
+launcher with several gloo ranks on the one card: x-slab generation
+through both kernels on every rank, packs made from the slabs with a halo
+exchange, sharded evaluation, dp x sp MD, the distributed screen and the
+sampler's replica mesh, each against one rank, and a one-rank NCCL mesh
+whose MD segment is recorded with its all-reduce inside. Then the
 out-of-core path: float64 generation through the kernels' float64
 instantiations, grids generated tile by tile into OMGTILE files (the bench
 box, and the reference's 520 x 695 x 578-point stress box, three 0.84 GB
@@ -428,11 +434,13 @@ def synthetic_complex(seed: int = 0, n_ligand: int = N_LIGAND,
     return lig, x, receptor, rec
 
 
-def grid_box(lig_crd):
-    """Ligand bounds +- MARGIN at SPACING: (counts, origin)."""
+def grid_box(lig_crd, spacing=None):
+    """Ligand bounds +- MARGIN at ``spacing`` (default SPACING): (counts,
+    origin)."""
+    spacing = SPACING if spacing is None else spacing
     lo = lig_crd.min(0) - MARGIN
     counts = tuple(int(c) + 1 for c in
-                   np.ceil((lig_crd.max(0) + MARGIN - lo) / SPACING))
+                   np.ceil((lig_crd.max(0) + MARGIN - lo) / spacing))
     return counts, tuple(float(v) for v in lo)
 
 
@@ -2831,6 +2839,531 @@ def phase_streamed_path(torch, seed, lig, lig_crd, files,
           f"streamed_path: a replica reached {float(t_rep.max())} K")
 
 
+# ----------------------------------------------------------------------
+# Scale-out on torch.distributed (several gloo ranks on the one card, and
+# a one-rank NCCL mesh)
+# ----------------------------------------------------------------------
+
+SCALEOUT_REPLICAS = 1000
+SCALEOUT_MD_STEPS = 100
+SCALEOUT_SCREEN_STEPS = 200
+SCALEOUT_TOP_K = 10
+SCALEOUT_NCCL_STEPS = 20
+SCALEOUT_ALLREDUCE_REPS = 50
+SCALEOUT_PROFILED_STEPS = 10
+SCALEOUT_BPMF_TRIALS = 2
+SCALEOUT_BPMF_NSTEP_MD = 50
+SCALEOUT_GATE = 1e-4          # eval_check's, of max |E| and of max |F|
+
+
+def _rank_figures(torch, device, t0):
+    """(seconds since ``t0`` after every rank is done, this rank's peak
+    device GB)."""
+    import torch.distributed as dist
+
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    dist.barrier()
+    gb = (torch.cuda.max_memory_allocated(device) / 1e9
+          if device.type == "cuda" else None)
+    return time.perf_counter() - t0, gb
+
+
+def _scaleout_setup(torch, cfg, device, which="complex"):
+    """The complex the parent built (``cfg[which]``), its grid box and the
+    per-atom scalings on ``device``."""
+    from openmmgridforce_tpu_torch.ops import gridgen
+
+    if device.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+    lig, lig_crd, rec, rec_crd = cfg[which]
+    counts, origin = grid_box(lig_crd, cfg["spacing"])
+    scaling = torch.as_tensor(np.stack([gridgen.auto_scaling_factors(
+        gt, lig.charges, lig.sigmas, lig.epsilons) for gt in GRID_TYPES]),
+        dtype=torch.float32, device=device)
+    return lig, lig_crd, rec, rec_crd, counts, origin, scaling
+
+
+def _scaleout_rank(device, cfg):
+    """Stages 1-4 and 6 of scaleout_path on one of 4 ranks (see
+    phase_scaleout_path). Returns this rank's figures."""
+    import torch
+    import torch.distributed as dist
+
+    from openmmgridforce_tpu_torch.grid import InterpolationMethod
+    from openmmgridforce_tpu_torch.mm import (GridBinding,
+                                              energy_and_forces,
+                                              make_md_runner,
+                                              system_from_amber)
+    from openmmgridforce_tpu_torch.ops import gridgen
+    from openmmgridforce_tpu_torch.ops.packed import (evaluate_multi,
+                                                      pack_grids_fused)
+    from openmmgridforce_tpu_torch.parallel import (
+        Mesh, distributed, generate_grid_sharded, init_replica_states,
+        make_sharded_grid_eval, make_sharded_md_runner, pack_sharded,
+        replica_rows, shard_packed_grid, shard_replica_states)
+
+    t_start = time.perf_counter()
+    lig, lig_crd, rec, rec_crd, counts, origin, scaling = _scaleout_setup(
+        torch, cfg, device)
+    on_card = device.type == "cuda"
+    spacing = (cfg["spacing"],) * 3
+    receptor = (rec_crd, rec.charges, rec.sigmas, rec.epsilons)
+    sp4 = Mesh((4,), ("sp",), device)
+    dp2sp2 = Mesh((2, 2), ("dp", "sp"), device)
+    dp4 = Mesh((4,), ("dp",), device)
+    out = {"rank": dist.get_rank(), "device": str(device)}
+    bspline = InterpolationMethod.BSPLINE
+    triquintic = InterpolationMethod.TRIQUINTIC
+
+    def gen(mesh, gt, derivs, method, dtype=torch.float32):
+        return generate_grid_sharded(
+            mesh, counts, spacing, origin, gt, *receptor, grid_cap=GRID_CAP,
+            compute_derivatives=derivs, interp_method=method, dtype=dtype)
+
+    def one_rank(gt, derivs, method, dtype=torch.float32):
+        return gridgen.generate_grid(
+            counts, spacing, origin, gt, *receptor, grid_cap=GRID_CAP,
+            compute_derivatives=derivs, interp_method=method, dtype=dtype,
+            device=device)
+
+    # 1. sharded generation: values over sp = 4 (K1), 27 derivatives over
+    # sp = 2 (K2, then the chain rules), float32, then one grid of each in
+    # float64; launches counted from 0 (a fresh process) to here
+    values_kernel, derivs_kernel = _reset_launches()
+    t0 = time.perf_counter()
+    vslabs = [gen(sp4, gt, False, bspline) for gt in GRID_TYPES]
+    dslabs = [gen(dp2sp2, gt, True, triquintic) for gt in GRID_TYPES]
+    out["generate_s"], out["generate_gb"] = _rank_figures(torch, device, t0)
+    out["launches"] = {"gridgen_values": values_kernel.launches,
+                       "gridgen_derivs": derivs_kernel.launches}
+    _reset_launches()
+    slabs64 = [gen(sp4, "charge", False, bspline, torch.float64),
+               gen(dp2sp2, "ljr", True, triquintic, torch.float64)]
+    out["launches_f64"] = {"gridgen_values": values_kernel.launches,
+                           "gridgen_derivs": derivs_kernel.launches}
+    out["x_rows"] = {"values_sp4": vslabs[0].x_range,
+                     "derivs_sp2": dslabs[0].x_range}
+    vgrids = [s.gather() for s in vslabs]
+    dgrids = [s.gather() for s in dslabs]
+    equal = [torch.equal(g.vals, one_rank(gt, False, bspline).vals)
+             for g, gt in zip(vgrids, GRID_TYPES)]
+    equal += [torch.equal(g.derivs, one_rank(gt, True, triquintic).derivs)
+              for g, gt in zip(dgrids, GRID_TYPES)]
+    g64 = [s.gather() for s in slabs64]
+    equal += [torch.equal(g64[0].vals, one_rank("charge", False, bspline,
+                                                torch.float64).vals),
+              torch.equal(g64[1].derivs, one_rank("ljr", True, triquintic,
+                                                  torch.float64).derivs)]
+    out["generation_bitwise"] = equal
+    del slabs64, g64
+
+    # 2. packs from the slabs with the halo exchange, against the rows of
+    # the one-rank packs
+    t0 = time.perf_counter()
+    vpack = pack_sharded(vslabs, x_chunk=BPMF_X_CHUNK)
+    dpack = pack_sharded(dslabs, x_chunk=BPMF_X_CHUNK)
+    out["pack_s"], out["pack_gb"] = _rank_figures(torch, device, t0)
+    whole = pack_grids_fused(vgrids, x_chunk=BPMF_X_CHUNK, device=device)
+    dwhole = pack_grids_fused(dgrids, x_chunk=BPMF_X_CHUNK, device=device)
+    out["packs"] = {
+        "bspline_sp4": {
+            "rows": vpack.coeffs.shape[0], "bytes": vpack.coeffs.nbytes,
+            "whole_bytes": whole.coeffs.nbytes,
+            "rows_equal": torch.equal(
+                vpack.coeffs, shard_packed_grid(whole, sp4).coeffs)},
+        "triquintic_sp2": {
+            "rows": dpack.coeffs.shape[0], "bytes": dpack.coeffs.nbytes,
+            "whole_bytes": dwhole.coeffs.nbytes,
+            "rows_equal": torch.equal(
+                dpack.coeffs, shard_packed_grid(dwhole, dp2sp2).coeffs)}}
+    del dpack, dwhole, dgrids, dslabs, vgrids, vslabs
+
+    # 3. sharded evaluation of every replica against the unsharded pack
+    R = cfg["replicas"]
+    gen_cpu = np.random.default_rng(cfg["seed"] + 7)
+    poses = torch.as_tensor(
+        lig_crd[None] + gen_cpu.normal(0.0, 0.03, (R,) + lig_crd.shape),
+        dtype=torch.float32, device=device)
+    ref = evaluate_multi(whole, poses, scaling)
+    out["eval"] = {}
+    for name, mesh, table in (("sp4", sp4, vpack),
+                              ("sp2", dp2sp2,
+                               shard_packed_grid(whole, dp2sp2))):
+        evaluate = make_sharded_grid_eval(mesh)
+        got = evaluate(table, poses, scaling)
+        t0 = time.perf_counter()
+        for _ in range(5):
+            evaluate(table, poses, scaling)
+        t_eval, _ = _rank_figures(torch, device, t0)
+        out["eval"][name] = {
+            "max_abs_E": float(ref.energy.abs().max()),
+            "E_delta": float((got.energy - ref.energy).abs().max()),
+            "max_abs_F": float(ref.forces.abs().max()),
+            "F_delta": float((got.forces - ref.forces).abs().max()),
+            "bitwise": bool(torch.equal(got.energy, ref.energy)
+                            and torch.equal(got.forces, ref.forces)),
+            "ms_per_eval": t_eval / 5 * 1e3}
+    del vpack
+
+    # 4. dp x sp = 2 x 2 MD under explicit noise against one rank's
+    # make_md_runner on every replica
+    system = system_from_amber(lig, dtype=torch.float32, hydrogen_mass=4.0,
+                               device=device)
+    gen_dev = torch.Generator(device=device)
+    gen_dev.manual_seed(cfg["seed"])
+    states = init_replica_states(
+        gen_dev, torch.as_tensor(lig_crd, dtype=torch.float32),
+        system.masses, 300.0, R, device=device)
+    temps = torch.full((R,), 300.0, device=device)
+    gen_dev.manual_seed(cfg["seed"] + 1)
+    n_md = cfg["md_steps"]
+    noise = torch.randn((n_md, R) + lig_crd.shape, generator=gen_dev,
+                        dtype=torch.float32, device=device)
+    rows = replica_rows(dp2sp2, R)
+    local = shard_replica_states(dp2sp2, states)
+    table = shard_packed_grid(whole, dp2sp2)
+    run = make_sharded_md_runner(dp2sp2, n_md, 0.001, 5.0)
+    t0 = time.perf_counter()
+    mine = run(local, system, table, scaling, temps[rows],
+               noise=noise[:, rows])
+    t_md, md_gb = _rank_figures(torch, device, t0)
+    buf = torch.zeros((R // 2,) + lig_crd.shape[:1] + (4,), device=device)
+    t0 = time.perf_counter()
+    for _ in range(SCALEOUT_ALLREDUCE_REPS):
+        dp2sp2.all_reduce(buf, "sp")
+    t_ar = (time.perf_counter() - t0) / SCALEOUT_ALLREDUCE_REPS
+    window = make_sharded_md_runner(dp2sp2, SCALEOUT_PROFILED_STEPS, 0.001,
+                                    5.0)
+
+    def profiled():
+        window(mine, system, table, scaling, temps[rows])
+        if on_card:
+            torch.cuda.synchronize(device)
+
+    busy = "not measured"
+    if on_card and dist.get_rank() == 0:
+        wall_us, busy_us, n_ops, _ = _profile(torch, profiled,
+                                              host_ops=False)
+        if n_ops:
+            busy = busy_us / wall_us
+    else:
+        profiled()
+    dist.barrier()
+    xs = dp2sp2.all_gather(mine.positions, "dp")
+    vs = dp2sp2.all_gather(mine.velocities, "dp")
+    out["md"] = {"mode": run.mode, "steps": n_md, "seconds": t_md,
+                 "steps_per_s": n_md / t_md,
+                 "replica_steps_per_s": n_md * R / t_md, "peak_gb": md_gb,
+                 "all_reduces_per_step": 1,
+                 "all_reduce_shape": list(buf.shape),
+                 "all_reduce_ms": t_ar * 1e3,
+                 "rank0_device_busy_share": busy}
+    if dist.get_rank() == 0:
+        one = make_md_runner(n_md, 0.001, 5.0, device=device)(
+            states, system, [GridBinding(grid=whole, scaling=scaling)],
+            temps, noise=noise)
+        out["md"]["max_abs_dx_nm"] = float((xs - one.positions).abs().max())
+        out["md"]["max_abs_dv_nm_per_ps"] = float(
+            (vs - one.velocities).abs().max())
+        out["md"]["finite"] = bool(torch.isfinite(xs).all())
+    del noise, mine, xs, vs, table
+
+    # 6. the distributed screen over dp = 4 and the global top-k, against
+    # one rank's screen of every replica under the same noise
+    n_screen = cfg["screen_steps"]
+    gen_dev.manual_seed(cfg["seed"] + 2)
+    noise = torch.randn((n_screen, R) + lig_crd.shape, generator=gen_dev,
+                        dtype=torch.float32, device=device)
+    rows = replica_rows(dp4, R)
+    binding = GridBinding(grid=whole, scaling=scaling)
+    screen = distributed.make_distributed_screen(dp4, n_screen, 0.001, 5.0)
+    t0 = time.perf_counter()
+    final, energies = screen(shard_replica_states(dp4, states), system,
+                             [binding], temps[rows], noise=noise[:, rows])
+    top_e, top_x = distributed.top_k_poses(dp4, energies, final.positions,
+                                           SCALEOUT_TOP_K)
+    t_screen, screen_gb = _rank_figures(torch, device, t0)
+    out["screen"] = {"steps": n_screen, "seconds": t_screen,
+                     "replica_steps_per_s": n_screen * R / t_screen,
+                     "peak_gb": screen_gb}
+    if dist.get_rank() == 0:
+        md = make_md_runner(n_screen, 0.001, 5.0, device=device)
+        full = md(states, system, [binding], temps, noise=noise)
+        e_one = energy_and_forces(system, [binding], full.positions)[0]
+        neg, idx = torch.topk(-e_one, SCALEOUT_TOP_K)
+        out["screen"].update({
+            "top_E": [float(e) for e in top_e],
+            "one_rank_top_E": [float(-e) for e in neg],
+            "top_E_delta": float((top_e + neg).abs().max()),
+            "top_x_delta": float((top_x - full.positions[idx]).abs()
+                                 .max())})
+    out["work_s"] = time.perf_counter() - t_start
+    return out
+
+
+def _nccl_rank(device, cfg):
+    """Stage 5 of scaleout_path: a one-rank NCCL mesh's dp x sp runner,
+    recorded as CUDA graphs with the NCCL all-reduce inside, against the
+    same segment as eager launches."""
+    import torch
+    import torch.distributed as dist
+
+    from openmmgridforce_tpu_torch.grid import InterpolationMethod
+    from openmmgridforce_tpu_torch.mm import MDState, graphs, system_from_amber
+    from openmmgridforce_tpu_torch.ops import gridgen
+    from openmmgridforce_tpu_torch.ops.packed import pack_grids_fused
+    from openmmgridforce_tpu_torch.parallel import (Mesh,
+                                                    make_sharded_md_runner,
+                                                    shard_packed_grid)
+
+    t_start = time.perf_counter()
+    lig, lig_crd, rec, rec_crd, counts, origin, scaling = _scaleout_setup(
+        torch, cfg, device)
+    mesh = Mesh((1, 1), ("dp", "sp"), device)
+    values_kernel, _ = _reset_launches()
+    grids = [gridgen.generate_grid(
+        counts, (cfg["spacing"],) * 3, origin, gt, rec_crd, rec.charges,
+        rec.sigmas, rec.epsilons, grid_cap=GRID_CAP,
+        interp_method=InterpolationMethod.BSPLINE, device=device)
+        for gt in GRID_TYPES]
+    launches = values_kernel.launches
+    table = shard_packed_grid(pack_grids_fused(grids, device=device), mesh)
+    del grids
+    system = system_from_amber(lig, dtype=torch.float32, hydrogen_mass=4.0,
+                               device=device)
+    R, n = cfg["replicas"], SCALEOUT_NCCL_STEPS
+    gen = torch.Generator(device=device)
+    gen.manual_seed(cfg["seed"] + 3)
+    x = torch.as_tensor(lig_crd, dtype=torch.float32, device=device)
+    start = MDState(x.expand(R, *x.shape).clone(),
+                    torch.zeros((R,) + x.shape, device=device), None)
+    noise = torch.randn((n, R) + tuple(x.shape), generator=gen,
+                        device=device)
+    run = make_sharded_md_runner(mesh, n, 0.001, 5.0)
+    before = graphs.RECORDINGS["count"]
+    graph = run(start, system, table, scaling, 300.0, noise=noise)
+    recordings = graphs.RECORDINGS["count"] - before
+    with graphs.eager():
+        eager = run(start, system, table, scaling, 300.0, noise=noise)
+    torch.cuda.synchronize(device)
+    return {"backend": dist.get_backend(), "mode": run.mode,
+            "recordings": recordings, "launches": launches,
+            "bitwise_equal": bool(torch.equal(graph.positions,
+                                              eager.positions)
+                                  and torch.equal(graph.velocities,
+                                                  eager.velocities)),
+            "max_abs_dx_nm": float((graph.positions - eager.positions)
+                                   .abs().max()),
+            "moved_nm": float((graph.positions - start.positions).abs()
+                              .max()),
+            "work_s": time.perf_counter() - t_start}
+
+
+def _sampler_rank(device, cfg, dp):
+    """Stage 7 of scaleout_path: the 21-state BPMF ladder on a dp mesh
+    (``dp`` None: one process, no mesh), a few trials at cut depth."""
+    import torch
+
+    from openmmgridforce_tpu_torch.grid import InterpolationMethod
+    from openmmgridforce_tpu_torch.mm import GridBinding, system_from_amber
+    from openmmgridforce_tpu_torch.ops import gridgen
+    from openmmgridforce_tpu_torch.ops.packed import pack_grids_fused
+    from openmmgridforce_tpu_torch.parallel import Mesh
+    from openmmgridforce_tpu_torch.sampling import Sampler, SamplerConfig
+
+    t_start = time.perf_counter()
+    lig, lig_crd, rec, rec_crd, counts, origin, scaling = _scaleout_setup(
+        torch, cfg, device, which="bpmf_complex")
+    values_kernel, _ = _reset_launches()
+    grids = [gridgen.generate_grid(
+        counts, (cfg["spacing"],) * 3, origin, gt, rec_crd, rec.charges,
+        rec.sigmas, rec.epsilons, grid_cap=GRID_CAP,
+        interp_method=InterpolationMethod.BSPLINE, device=device)
+        for gt in GRID_TYPES]
+    launches = values_kernel.launches
+    table = pack_grids_fused(grids, x_chunk=BPMF_X_CHUNK, device=device)
+    del grids
+    system = system_from_amber(lig, dtype=torch.float32,
+                               hydrogen_mass=BPMF_H_MASS,
+                               constraints="HBonds", device=device)
+    config = SamplerConfig(n_states=BPMF_STATES, t_high=BPMF_T_HIGH,
+                           t_min=BPMF_T_MIN, dt=BPMF_DT,
+                           friction=BPMF_FRICTION,
+                           md_steps_per_trial=cfg["bpmf_nstep_md"],
+                           hydrogen_mass=BPMF_H_MASS, seed=cfg["seed"])
+    mesh = None if dp is None else Mesh((dp,), ("dp",), device)
+    sampler = Sampler(system, [GridBinding(grid=table, scaling=scaling)],
+                      lig_crd, config, bonds=[tuple(b) for b in
+                                              lig.bond_idx],
+                      mesh=mesh, device=device)
+    t0 = time.perf_counter()
+    sampler.run(cfg["bpmf_trials"], n_exchange_per_trial=BPMF_REPX,
+                n_gmc_per_trial=BPMF_GMC)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    seconds = time.perf_counter() - t0
+    return {"launches": launches, "seconds": seconds,
+            "work_s": time.perf_counter() - t_start,
+            "local_rungs": int(sampler.states.positions.shape[0]),
+            "energies": sampler.potential_energies(),
+            "accepted": [sampler.n_exchange_accepted,
+                         sampler.n_exchange_attempted,
+                         sampler.n_gmc_accepted, sampler.n_gmc_attempted]}
+
+
+def phase_scaleout_path(torch, seed, smi, device="cuda", spacing=SPACING,
+                        n_receptor=N_RECEPTOR, replicas=SCALEOUT_REPLICAS,
+                        md_steps=SCALEOUT_MD_STEPS,
+                        screen_steps=SCALEOUT_SCREEN_STEPS,
+                        bpmf_trials=SCALEOUT_BPMF_TRIALS,
+                        bpmf_nstep_md=SCALEOUT_BPMF_NSTEP_MD):
+    """The port's scale-out (openmmgridforce_tpu_torch.parallel) through
+    its launcher, with several gloo ranks on the one card:
+
+    1. sharded generation of the three value grids over sp = 4 (K1) and
+       the three derivative grids over sp = 2 (K2 and the chain rules),
+       and one grid of each in float64; the gathered grids equal the
+       one-rank generate_grid's bit for bit;
+    2. fused packs made on each rank from its slabs and the halo planes
+       its neighbours send (B-spline over sp = 4, triquintic over sp = 2),
+       their rows equal to the one-rank packs';
+    3. sharded evaluation of every replica over sp = 4 and sp = 2 against
+       the unsharded evaluate_multi;
+    4. make_sharded_md_runner on dp x sp = 2 x 2 under the explicit noise
+       of a one-rank make_md_runner (eager steps: gloo all-reduces through
+       the host);
+    5. a one-rank NCCL mesh: the runner recorded as CUDA graphs with the
+       NCCL all-reduce inside, against eager launches;
+    6. make_distributed_screen on dp = 4 and top_k_poses against one
+       rank's screen;
+    7. Sampler(mesh=dp 3) on the 21-state ladder against one process.
+
+    ``device="cpu"`` rehearses it on the host at a small size (gloo ranks;
+    stage 5 needs the card and is left out). Returns the kernels'
+    launches on this path, by kernel and dtype."""
+    from openmmgridforce_tpu_torch.parallel import distributed
+
+    on_card = torch.device(device).type == "cuda"
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    # the ranks get the complexes built here (pickled), not rebuilt each
+    cfg = {"seed": seed, "spacing": spacing, "replicas": replicas,
+           "md_steps": md_steps, "screen_steps": screen_steps,
+           "bpmf_trials": bpmf_trials, "bpmf_nstep_md": bpmf_nstep_md,
+           "complex": synthetic_complex(seed, n_receptor=n_receptor),
+           "bpmf_complex": synthetic_complex(seed, n_receptor=n_receptor,
+                                             gap=BPMF_RECEPTOR_GAP)}
+    rank_device = None if on_card else "cpu"
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    ranks = distributed.launch(_scaleout_rank, 4, (cfg,), backend="gloo",
+                               device=rank_device)
+    t_ranks = time.perf_counter() - t0
+    first = ranks[0]
+    emit({"phase": "scaleout_generation", "ranks": 4, "backend": "gloo",
+          "card": smi, "launch_s": t_ranks,
+          "rank_work_s": [r["work_s"] for r in ranks],
+          "x_rows": [r["x_rows"] for r in ranks],
+          "seconds": first["generate_s"],
+          "peak_gb_per_rank": [r["generate_gb"] for r in ranks],
+          "launches_f32": [r["launches"] for r in ranks],
+          "launches_f64": [r["launches_f64"] for r in ranks],
+          "bitwise_equal": [r["generation_bitwise"] for r in ranks]})
+    emit({"phase": "scaleout_packs", "seconds": first["pack_s"],
+          "peak_gb_per_rank": [r["pack_gb"] for r in ranks],
+          "packs": [r["packs"] for r in ranks]})
+    for name in ("sp4", "sp2"):
+        emit({"phase": "scaleout_eval", "sp": int(name[2:]),
+              "replicas": replicas, "gate": SCALEOUT_GATE,
+              **{k: [r["eval"][name][k] for r in ranks]
+                 for k in first["eval"][name]}})
+    emit({"phase": "scaleout_md", "mesh": "dp 2 x sp 2", "card": smi,
+          "replicas": replicas,
+          "note": "eager steps, gloo all-reduces through the host: a "
+                  "correctness run on one card, not the rate of an NCCL "
+                  "mesh on several cards",
+          "per_rank": [r["md"] for r in ranks], "gate": GRAPH_GATE})
+    emit({"phase": "scaleout_screen", "dp": 4, "replicas": replicas,
+          "top_k": SCALEOUT_TOP_K, "card": smi,
+          "per_rank": [r["screen"] for r in ranks]})
+    for r in ranks:
+        check(all(r["generation_bitwise"]), f"scaleout: rank {r['rank']}'s "
+              "gathered grids differ from one rank's generate_grid")
+        for name, p in r["packs"].items():
+            check(p["rows_equal"], f"scaleout: rank {r['rank']}'s {name} "
+                  "rows differ from the one-rank pack's")
+        for name, e in r["eval"].items():
+            check(e["E_delta"] <= SCALEOUT_GATE * e["max_abs_E"]
+                  and e["F_delta"] <= SCALEOUT_GATE * e["max_abs_F"],
+                  f"scaleout: sharded evaluation ({name}) is "
+                  f"{e['E_delta']} / {e['F_delta']} from the unsharded")
+    md = first["md"]
+    check(md["finite"], "scaleout: non-finite sharded MD")
+    check(md["max_abs_dx_nm"] <= GRAPH_GATE
+          and md["max_abs_dv_nm_per_ps"] <= GRAPH_GATE,
+          f"scaleout: the 2 x 2 runner is {md['max_abs_dx_nm']} nm, "
+          f"{md['max_abs_dv_nm_per_ps']} nm/ps from one rank's")
+    sc = first["screen"]
+    check(sc["top_E_delta"] <= SCALEOUT_GATE * max(abs(e) for e in
+                                                   sc["one_rank_top_E"])
+          and sc["top_x_delta"] <= GRAPH_GATE,
+          f"scaleout: the screen's top {SCALEOUT_TOP_K} differ from one "
+          f"rank's by {sc['top_E_delta']} kJ/mol, {sc['top_x_delta']} nm")
+
+    launches = {"gridgen_values": sum(r["launches"]["gridgen_values"]
+                                      for r in ranks),
+                "gridgen_derivs": sum(r["launches"]["gridgen_derivs"]
+                                      for r in ranks),
+                "gridgen_values_f64": sum(r["launches_f64"]["gridgen_values"]
+                                          for r in ranks),
+                "gridgen_derivs_f64": sum(r["launches_f64"]["gridgen_derivs"]
+                                          for r in ranks)}
+    if on_card:
+        t0 = time.perf_counter()
+        nccl = distributed.launch(_nccl_rank, 1, (cfg,), backend="nccl")[0]
+        emit({"phase": "scaleout_nccl", "world": 1, "card": smi,
+              "seconds": time.perf_counter() - t0, **nccl})
+        check(nccl["mode"] == "recorded" and nccl["recordings"] >= 1,
+              "scaleout: the NCCL runner did not record its segment")
+        check(nccl["bitwise_equal"], "scaleout: the NCCL-recorded runner "
+              f"is {nccl['max_abs_dx_nm']} nm from eager launches")
+        launches["gridgen_values"] += nccl["launches"]
+
+    t0 = time.perf_counter()
+    mesh_run = distributed.launch(_sampler_rank, 3, (cfg, 3),
+                                  backend="gloo", device=rank_device)
+    t_mesh = time.perf_counter() - t0
+    one = _sampler_rank(torch.device(device), cfg, None)
+    delta = max(float(np.abs(r["energies"] - one["energies"]).max())
+                for r in mesh_run)
+    scale = float(np.abs(one["energies"]).max())
+    emit({"phase": "scaleout_sampler", "dp": 3, "states": BPMF_STATES,
+          "trials": bpmf_trials, "nstep_md": bpmf_nstep_md, "card": smi,
+          "launch_s": t_mesh, "rank_work_s": [r["work_s"] for r in mesh_run],
+          "trials_s": [r["seconds"] for r in mesh_run],
+          "one_process_trials_s": one["seconds"],
+          "local_rungs": [r["local_rungs"] for r in mesh_run],
+          "accepted": [r["accepted"] for r in mesh_run],
+          "one_process_accepted": one["accepted"],
+          "max_abs_E_delta": delta, "max_abs_E": scale})
+    for r in mesh_run:
+        check(r["accepted"] == one["accepted"], "scaleout: the dp = 3 "
+              f"sampler accepted {r['accepted']}, one process "
+              f"{one['accepted']}")
+    check(delta <= SCALEOUT_GATE * scale, f"scaleout: the dp = 3 ladder's "
+          f"energies are {delta} kJ/mol from one process's")
+    launches["gridgen_values"] += sum(r["launches"] for r in mesh_run)
+    emit({"phase": "scaleout_path", "seconds": time.perf_counter() - t_phase,
+          "launches": launches})
+    if on_card:
+        check(launches["gridgen_values"] >= 3 * 4
+              and launches["gridgen_derivs"] >= 3 * 2,
+              f"scaleout: kernel launches {launches}")
+    return launches
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2895,6 +3428,9 @@ def main(argv=None):
     api_launches = phase_api_path(torch, args.seed, smi, lig, lig_crd, rec,
                                   rec_crd, counts, origin)
     launches["gridgen_values"]["api_path"] = api_launches["gridgen_values"]
+    scaleout = phase_scaleout_path(torch, args.seed, smi)
+    for name in ("gridgen_values", "gridgen_derivs"):
+        launches[name]["scaleout_path"] = scaleout[name]
 
     lig, lig_crd, rec, rec_crd = synthetic_complex(args.seed)
     checks_f64 = phase_float64_kernels(torch, rec, rec_crd, counts, origin,
@@ -2946,7 +3482,8 @@ def main(argv=None):
         for name, per_type in checks.items()] + [
         line(f"{name}_f64", checks_f64[name],
              {"float64_generation": launches_f64[name],
-              "api_path": api_launches[f"{name}_f64"]}, "rel_err", name)
+              "api_path": api_launches[f"{name}_f64"],
+              "scaleout_path": scaleout[f"{name}_f64"]}, "rel_err", name)
         for name in checks_f64]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -3,7 +3,8 @@
 examples/bpmf_sampler.py.
 
     python examples/bpmf_sampler_torch.py -i input.json --generate-grids \
-        [--device cuda|cpu] [--n-trials N] [--friction 5] [--drain-rounds 2]
+        [--device cuda|cpu] [--n-trials N] [--friction 5] [--drain-rounds 2] \
+        [--dp N [--sp M]]
 
 Reads the same input.json schema (run_job/nstate/ntrial_repX/ntrial_gMC/
 nstep_MD/nstep_equil at the top level, T_HIGH/T_SIMMIN/H_mass/delta_t in
@@ -19,8 +20,16 @@ the work directory.
 Without --generate-grids the grids are read from the files that
 input.json names under "grids" ("direct_elec", "LJr", "LJa"): AlGDock
 NetCDF (.nc, Angstrom and kcal/mol) or V3 binary (.grid), each a B-spline
-pack of its own, as in the JAX example. The replica mesh (--dp/--sp) is
-not ported yet and raises.
+pack of its own, as in the JAX example.
+
+``--dp N --sp M`` run the ladder on a mesh of N x M ranks
+(``openmmgridforce_tpu_torch.parallel``): rungs split over dp, and with
+M > 1 the fused table over sp (generated slab by slab on the sp ranks:
+--sp needs --generate-grids). The example starts its own ranks, one process
+each: gloo on the host with ``--device cpu``, NCCL when the machine has
+N x M cards, else gloo with every rank on the one card. Under ``torchrun
+--nproc-per-node N*M`` it joins torchrun's ranks instead. Rank 0 alone
+writes energies.dat, traj.xyz and the checkpoints.
 """
 
 import argparse
@@ -44,12 +53,14 @@ FUSED_TABLE_LIMIT = 6.8e9
 X_CHUNK = 16
 
 
-def generate_grids(cfg, lig_crd, margin, spacing, device):
+def generate_grids(cfg, lig_crd, margin, spacing, device, mesh=None):
     """Charge/ljr/lja B-spline grids from the receptor named in input.json,
-    over the ligand's bounds +- ``margin`` nm at ``spacing`` nm."""
+    over the ligand's bounds +- ``margin`` nm at ``spacing`` nm; with a
+    mesh of more than one sp rank, this rank's x-slabs of them."""
     from openmmgridforce_tpu_torch.grid import InterpolationMethod
     from openmmgridforce_tpu_torch.mm import load_inpcrd, load_prmtop
     from openmmgridforce_tpu_torch.ops import gridgen
+    from openmmgridforce_tpu_torch.parallel import generate_grid_sharded
 
     paths = cfg.get("dir", {})
     for k in ("receptor_prmtop", "receptor_inpcrd"):
@@ -63,10 +74,19 @@ def generate_grids(cfg, lig_crd, margin, spacing, device):
                    np.ceil((lig_crd.max(0) + margin - lo) / spacing))
     print(f"generating grids {counts} from {rec.natom} receptor atoms",
           flush=True)
+    args = (counts, (spacing,) * 3, lo)
+    fields = (rec_crd, rec.charges, rec.sigmas, rec.epsilons)
+    if _sp(mesh) > 1:
+        return [generate_grid_sharded(
+            mesh, *args, gt, *fields,
+            interp_method=InterpolationMethod.BSPLINE) for gt in GRID_TYPES]
     return [gridgen.generate_grid(
-        counts, (spacing,) * 3, lo, gt, rec_crd, rec.charges, rec.sigmas,
-        rec.epsilons, interp_method=InterpolationMethod.BSPLINE,
+        *args, gt, *fields, interp_method=InterpolationMethod.BSPLINE,
         device=device) for gt in GRID_TYPES]
+
+
+def _sp(mesh):
+    return mesh.size("sp") if mesh is not None else 1
 
 
 def file_binding(path, unit_conversion, scaling, device):
@@ -100,14 +120,22 @@ def file_binding(path, unit_conversion, scaling, device):
         scaling, dtype=torch.float32, device=device))
 
 
-def fused_bindings(grids, scalings, device):
+def fused_bindings(grids, scalings, device, mesh=None):
     """GridBindings of the grids, fused as one table where it fits, else
-    as (charge + ljr | lja)."""
+    as (charge + ljr | lja); with a mesh of more than one sp rank, one
+    table packed from this rank's slabs (the sampler needs one binding
+    to shard)."""
     import torch
 
     from openmmgridforce_tpu_torch.mm import GridBinding
     from openmmgridforce_tpu_torch.ops.packed import pack_grids_fused
+    from openmmgridforce_tpu_torch.parallel import pack_sharded
 
+    if _sp(mesh) > 1:
+        return [GridBinding(
+            grid=pack_sharded(grids, x_chunk=X_CHUNK),
+            scaling=torch.as_tensor(np.stack(scalings), dtype=torch.float32,
+                                    device=device))]
     ncells = int(np.prod([c - 1 for c in grids[0].counts]))
     groups = ([[0, 1], [2]] if ncells * 256 * 4 > FUSED_TABLE_LIMIT
               else [[0, 1, 2]])
@@ -119,7 +147,7 @@ def fused_bindings(grids, scalings, device):
         for grp in groups]
 
 
-def main(argv=None):
+def parse_args(argv):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("-i", "--input", required=True)
     ap.add_argument("--n-trials", type=int, default=100)
@@ -130,9 +158,10 @@ def main(argv=None):
     ap.add_argument("--grid-spacing", type=float, default=0.025,
                     help="spacing (nm) for --generate-grids")
     ap.add_argument("--dp", type=int, default=0,
-                    help="replica mesh: not ported yet")
+                    help="ranks the rungs split over (0: no mesh)")
     ap.add_argument("--sp", type=int, default=1,
-                    help="spatial grid sharding: not ported yet")
+                    help="ranks the fused grid table splits over (with "
+                         "--generate-grids)")
     ap.add_argument("--friction", type=float, default=1.0,
                     help="Langevin friction (ps^-1). The reference example "
                          "uses 1/ps; on capped grids a fusion event spikes "
@@ -145,23 +174,68 @@ def main(argv=None):
                          "between chunks (0 = one uninterrupted run)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
-    args = ap.parse_args(argv)
+    return ap.parse_args(argv)
+
+
+def _summary(sampler):
+    return {"n_exchange_attempted": sampler.n_exchange_attempted,
+            "n_exchange_accepted": sampler.n_exchange_accepted,
+            "n_gmc_attempted": sampler.n_gmc_attempted,
+            "n_gmc_accepted": sampler.n_gmc_accepted,
+            "energies": sampler.potential_energies()}
+
+
+def _rank_main(device, argv):
+    """One rank of a mesh this example started (``main``)."""
+    from openmmgridforce_tpu_torch.parallel import Mesh
+
+    args = parse_args(argv)
+    mesh = Mesh((args.dp, args.sp), ("dp", "sp"), device)
+    return _summary(run(args, device, mesh))
+
+
+def main(argv=None):
+    """Run the example; with --dp/--sp a mesh of ranks, started here
+    (returns rank 0's summary) or joined under torchrun."""
+    args = parse_args(argv)
+    n_ranks = max(args.dp, 1) * args.sp
+    if n_ranks == 1:
+        from openmmgridforce_tpu_torch import resolve_device
+        return run(args, resolve_device(args.device))
 
     import torch
 
-    from openmmgridforce_tpu_torch import resolve_device
+    from openmmgridforce_tpu_torch.parallel import Mesh, distributed
+
+    if args.dp < 1:
+        raise SystemExit("--sp needs --dp (the rungs' ranks, 1 or more)")
+    if args.sp > 1 and not args.generate_grids:
+        raise SystemExit("--sp splits the fused table that --generate-grids "
+                         "makes; the grid files are a pack each")
+    if "WORLD_SIZE" in os.environ:              # torchrun started the ranks
+        device = distributed.initialize(device=args.device)
+        mesh = Mesh((args.dp, args.sp), ("dp", "sp"), device)
+        return _summary(run(args, device, mesh))
+    on_host = args.device is not None and args.device.startswith("cpu")
+    backend = ("gloo" if on_host or torch.cuda.device_count() < n_ranks
+               else "nccl")
+    print(f"starting {n_ranks} ranks ({args.dp} dp x {args.sp} sp), "
+          f"backend {backend}", flush=True)
+    return distributed.launch(_rank_main, n_ranks, (argv,), backend=backend,
+                              device="cpu" if on_host else None)[0]
+
+
+def run(args, device, mesh=None):
+    """The workflow on ``device`` (on a mesh: this rank's part)."""
+    import torch
+
     from openmmgridforce_tpu_torch.mm import (load_inpcrd, load_prmtop,
                                               system_from_amber)
     from openmmgridforce_tpu_torch.sampling import Sampler, SamplerConfig
     from openmmgridforce_tpu_torch.units import KCAL_TO_KJ
     from openmmgridforce_tpu_torch.utils import save_sampler, write_xyz_frame
 
-    device = resolve_device(args.device)
-    if args.dp or args.sp != 1:
-        raise NotImplementedError(
-            "--dp/--sp: the replica mesh and grid sharding are not ported "
-            "yet (ROADMAP Queue A item 15)")
-
+    writer = mesh is None or mesh.rank == 0
     with open(args.input) as fh:
         cfg = json.load(fh)
 
@@ -198,8 +272,9 @@ def main(argv=None):
     if run_job != "BC" and args.generate_grids:
         t0 = time.perf_counter()
         grids = generate_grids(cfg, lig_crd, margin=1.0,
-                               spacing=args.grid_spacing, device=device)
-        bindings = fused_bindings(grids, scalings, device)
+                               spacing=args.grid_spacing, device=device,
+                               mesh=mesh)
+        bindings = fused_bindings(grids, scalings, device, mesh)
         del grids
         print(f"grids generated and packed in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
@@ -225,28 +300,34 @@ def main(argv=None):
         hydrogen_mass=job.get("H_mass"),
     )
     sampler = Sampler(system, bindings, lig_crd, scfg,
-                      bonds=[tuple(b) for b in lig.bond_idx], device=device)
+                      bonds=[tuple(b) for b in lig.bond_idx], mesh=mesh,
+                      device=device)
 
     n_repx = require(cfg, "ntrial_repX", "the top level")
     n_gmc = require(cfg, "ntrial_gMC", "the top level")
     work_dir = args.work_dir or os.path.join(
         cfg.get("work_dir", "."), run_job, f"{nstate}_{n_repx}_{n_gmc}")
     os.makedirs(work_dir, exist_ok=True)
+    sink = os.devnull if not writer else None
 
-    with open(os.path.join(work_dir, "energies.dat"), "w") as energy_file, \
-            open(os.path.join(work_dir, "traj.xyz"), "w") as xyz_file:
+    with open(sink or os.path.join(work_dir, "energies.dat"), "w") as \
+            energy_file, \
+            open(sink or os.path.join(work_dir, "traj.xyz"), "w") as xyz_file:
         def report(trial, s):
+            # every rank gathers (collectives); rank 0 writes
             e = s.potential_energies()
+            pos = s.positions().cpu().numpy()
+            if trial % 50 == 49:
+                save_sampler(os.path.join(work_dir, "checkpoint"), s)
+            if not writer:
+                return
             energy_file.write("".join(f"{v / KCAL_TO_KJ:12.4f}"
                                       for v in e) + "\n")
             energy_file.flush()
-            pos = s.states.positions.cpu().numpy()
             for istate in (0, len(e) - 1):
                 write_xyz_frame(xyz_file,
                                 f"state {istate} E={e[istate]:.3f}",
                                 pos[istate])
-            if trial % 50 == 49:
-                save_sampler(os.path.join(work_dir, "checkpoint"), s)
 
         t0 = time.perf_counter()
         # equilibration before production (sampler.py:551), in
@@ -260,7 +341,7 @@ def main(argv=None):
                 sampler.run_md(per)
                 if args.drain_rounds > 0:
                     n_hot = sampler.drain_trapped()
-                    if n_hot:
+                    if n_hot and writer:
                         print(f"equil chunk {i + 1}/{chunks}: re-drew "
                               f"velocities of {n_hot} trapped states")
 
@@ -270,6 +351,8 @@ def main(argv=None):
             torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
 
+    if not writer:
+        return sampler
     steps = args.n_trials * scfg.md_steps_per_trial * nstate
     print(f"{args.n_trials} trials in {elapsed:.1f}s on {device} "
           f"({steps / elapsed:,.0f} replica-steps/s)")

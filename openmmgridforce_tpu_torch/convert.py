@@ -154,6 +154,33 @@ def multi_hermite_packed_from_arrays(coeffs, spacing, origin, *, counts,
         oob_k=float(oob_k))
 
 
+def sharded_packed_from_arrays(coeffs, spacing, origin, *, counts, degree,
+                               n_grids, back_powers, oob_k, ncx_padded,
+                               form, method, poly_basis, mesh,
+                               axis="sp", dtype=torch.float64):
+    """This rank's rows of a JAX ShardedPackedGrid: ``coeffs`` is the JAX
+    package's global (lane-padded) table [ncx_padded * ncy * ncz, width],
+    the other arguments its static fields. Returns the port's
+    ShardedPackedGrid on the mesh's device, as ``shard_packed_grid`` lays
+    it out."""
+    from .parallel.sharded_grid import ShardedPackedGrid
+
+    slots = 8 if int(method) == InterpolationMethod.TRICUBIC else 27
+    K = 8 * slots if form == "hermite" else int(degree) ** 3
+    n, i = mesh.size(axis), mesh.index(axis)
+    rows = (int(ncx_padded) // n) * (int(counts[1]) - 1) * (int(counts[2]) - 1)
+    coeffs = np.asarray(coeffs)[i * rows:(i + 1) * rows, :int(n_grids) * K]
+    return ShardedPackedGrid(
+        coeffs=_float(coeffs, dtype, mesh.device).contiguous(),
+        spacing=_float(spacing, dtype, mesh.device),
+        origin=_float(origin, dtype, mesh.device),
+        counts=tuple(int(c) for c in counts), degree=int(degree),
+        n_grids=int(n_grids),
+        back_powers=tuple(float(b) for b in back_powers),
+        oob_k=float(oob_k), ncx_padded=int(ncx_padded), form=form,
+        method=int(method), poly_basis=poly_basis, mesh=mesh, axis=axis)
+
+
 def states_from_arrays(positions, velocities, *, seed: int,
                        dtype=torch.float64, device=None) -> MDState:
     device = resolve_device(device)

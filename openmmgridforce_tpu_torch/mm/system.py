@@ -8,6 +8,7 @@ dimension.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 from typing import Optional, Sequence
 
@@ -22,6 +23,7 @@ from ..ops.packed import (HermitePackedGrid, MultiHermitePackedGrid,
                           evaluate_hermite_multi, evaluate_hermite_packed,
                           evaluate_multi, evaluate_packed)
 from ..ops.pairwise import PairTable, build_pair_table, pair_energy_forces
+from . import graphs
 from .amber import AmberTopology
 from .constraints import ConstraintSet, constraints_from_bonds
 from .forcefield import bonded_energy, bonded_energy_forces
@@ -162,6 +164,10 @@ def _eval_grid(grid, positions, scaling):
         return evaluate_hermite_packed(grid, positions, scaling)
     if isinstance(grid, Grid):
         return evaluate_grid(grid, positions, scaling)
+    # imported here: the parallel package imports this module's package
+    from ..parallel.sharded_grid import ShardedPackedGrid, evaluate_sharded
+    if isinstance(grid, ShardedPackedGrid):
+        return evaluate_sharded(grid, positions, scaling)
     raise TypeError(f"cannot evaluate a {type(grid).__name__}")
 
 
@@ -186,7 +192,9 @@ def potential_energy(system: System, grids: Sequence[GridBinding],
 
 def energy_and_forces(system: System, grids: Sequence[GridBinding],
                       positions):
-    """Total energy [...] and forces [..., N, 3], all in closed form."""
+    """Total energy [...] and forces [..., N, 3], all in closed form. A
+    sharded table (``parallel/sharded_grid.py``) among the grids makes
+    this a collective over its mesh axis."""
     energy, forces = bonded_energy_forces(positions, system)
     if system.pairs is not None:
         e_p, f_p = pair_energy_forces(system.pairs, positions)
@@ -259,7 +267,10 @@ def make_md_runner(n_steps: int, dt: float, friction: float,
     dtype, device, scheme, dt, friction and block length and kept in a
     bounded cache, so the runners of one system share their recordings;
     the temperatures are copied into the recording's buffer before the
-    replays. On the CPU it is the plain loop of steps.
+    replays. A sharded table whose all-reduce goes through the host
+    (gloo over more than one rank) cannot be recorded: its segments run
+    their blocks as eager launches (``graphs.eager()``). On the CPU it is
+    the plain loop of steps.
     """
     device = resolve_device(device)
 
@@ -277,9 +288,13 @@ def make_md_runner(n_steps: int, dt: float, friction: float,
             seg = _md_segment(system, grids, states, dt, friction, scheme,
                               batched)
             seg.temperature.copy_(t)
-            xo, vo = seg.segment.run((x, states.velocities), n_steps,
-                                     noise=noise,
-                                     generator=states.generator)
+            recordable = all(getattr(gb.grid, "recordable", True)
+                             for gb in grids)
+            with (contextlib.nullcontext() if recordable
+                  else graphs.eager()):
+                xo, vo = seg.segment.run((x, states.velocities), n_steps,
+                                         noise=noise,
+                                         generator=states.generator)
             return MDState(xo, vo, states.generator)
 
         def force_fn(pos):

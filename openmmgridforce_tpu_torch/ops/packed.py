@@ -204,17 +204,29 @@ def _edge_pad(P, lo: int, hi: int, axes=(0, 1, 2)):
     return P
 
 
-def _value_planes(vals, method, c0: int, c1: int):
+def points_read(method, c0: int, c1: int, nx: int) -> tuple:
+    """The x-points [lo, hi) that the cells [c0, c1) of a pack read: a
+    B-spline cell's stencil spans offsets -1..+2 (clamped at the grid's
+    ends); every other method's cells read their corners [c0, c1]."""
+    if method == InterpolationMethod.BSPLINE:
+        return max(c0 - 1, 0), min(c1 + 3, nx)
+    return c0, c1 + 1
+
+
+def _value_planes(vals, method, c0: int, c1: int, first: int = 0,
+                  nx: int | None = None):
     """The value planes that cells [c0, c1) along x read, padded for
     ``_pack_values_padded``: a B-spline slab brings its stencil's real
     neighbour planes (offsets -1..+2, clamped at the grid's ends, which is
     edge padding) and is edge-padded along y and z; a trilinear slab is
-    the points [c0, c1]."""
+    the points [c0, c1]. ``vals`` holds the grid's x-points from ``first``
+    on, of ``nx`` in all (default: the whole grid)."""
+    nx = vals.shape[0] + first if nx is None else nx
     if method == InterpolationMethod.BSPLINE:
         idx = torch.arange(c0 - 1, c1 + 3, device=vals.device).clamp(
-            0, vals.shape[0] - 1)
+            0, nx - 1) - first
         return _edge_pad(vals.index_select(0, idx), 1, 2, axes=(1, 2))
-    return vals[c0:c1 + 1]
+    return vals[c0 - first:c1 + 1 - first]
 
 
 def _pack_values_padded(P, method, runtime_inv, inv_power, ncells):
@@ -273,21 +285,26 @@ def _write_rows(out, part, row: int, col: int):
     out[row:row + part.shape[0], col:col + part.shape[1]] = part
 
 
-def _pack_cells(grid: Grid, c0: int, c1: int, dtype, poly_basis, device):
+def _pack_cells(grid: Grid, c0: int, c1: int, dtype, poly_basis, device,
+                first: int = 0):
     """Coefficient rows [(c1 - c0) * ncy * ncz, K] in ``dtype`` of the
     grid's cells [c0, c1) along x, computed on ``device`` from the planes
     they read. Value methods contract in float64 and cast; Hermite
-    methods contract in ``dtype`` (see ``pack_grid``)."""
+    methods contract in ``dtype`` (see ``pack_grid``). ``grid``'s
+    ``vals`` and ``derivs`` may hold only the x-points from ``first`` on
+    (an x-slab with its halo)."""
     method = int(grid.interp_method)
     nx, ny, nz = grid.counts
     runtime_inv = grid_runtime_inv(grid)
     if method in _HERMITE_METHODS:
         if grid.derivs is None:
             raise ValueError("Hermite methods need precomputed derivatives")
-        return _pack_derivs(grid.derivs[c0:c1 + 1].to(device, dtype), method,
+        return _pack_derivs(grid.derivs[c0 - first:c1 + 1 - first].to(
+                                device, dtype), method,
                             runtime_inv, grid.inv_power,
                             (c1 - c0 + 1, ny, nz), poly_basis)
-    P = _value_planes(grid.vals, method, c0, c1).to(device, torch.float64)
+    P = _value_planes(grid.vals, method, c0, c1, first, nx).to(
+        device, torch.float64)
     coeffs = _pack_values_padded(P, method, runtime_inv, grid.inv_power,
                                  (c1 - c0, ny - 1, nz - 1))
     if poly_basis == "chebyshev":
@@ -511,11 +528,14 @@ def pack_grids_fused(grids, dtype=None, x_chunk: int | None = None,
 
 
 def _finish_multi(interp, grad_s, back_powers, spacing, scaling, pos,
-                  corner, inside, oob_k) -> GridEval:
+                  corner, inside, oob_k, owned=None,
+                  restrain: bool = True) -> GridEval:
     """The tail of the fused evaluators: from interpolated values
     [..., N, G] and fraction-gradients [..., N, G, 3] of G grids to summed
     energies and forces, the restraint applied once for the set.
-    ``scaling`` is [G, N]."""
+    ``scaling`` is [G, N]. A rank of a sharded table counts the
+    interpolation only of the atoms it ``owns`` (default: every atom
+    inside the box), and the restraint only where ``restrain``."""
     dtype, device = interp.dtype, interp.device
     if any(bp != 0.0 for bp in back_powers):
         bps = const_tensor(tuple(back_powers), dtype, device)
@@ -530,17 +550,19 @@ def _finish_multi(interp, grad_s, back_powers, spacing, scaling, pos,
 
     grad_phys = grad_s / spacing                        # [..., N, G, 3]
     s_t = scaling.transpose(0, 1)                       # [N, G]
-    active = inside[..., None] & (s_t != 0.0)           # [..., N, G]
+    counted = inside if owned is None else owned
+    active = counted[..., None] & (s_t != 0.0)          # [..., N, G]
     zero = torch.zeros((), dtype=dtype, device=device)
     per_atom = torch.where(active, s_t * interp, zero).sum(-1)
-    force_in = -torch.where(active[..., None], s_t[..., None] * grad_phys,
-                            zero).sum(-2)
+    forces = -torch.where(active[..., None], s_t[..., None] * grad_phys,
+                          zero).sum(-2)
 
-    dev = oob_deviation(pos, corner)
-    oob = ~inside
-    per_atom = per_atom + torch.where(
-        oob, 0.5 * oob_k * (dev * dev).sum(-1), zero)
-    forces = force_in + torch.where(oob[..., None], -oob_k * dev, zero)
+    if restrain:
+        dev = oob_deviation(pos, corner)
+        oob = ~inside
+        per_atom = per_atom + torch.where(
+            oob, 0.5 * oob_k * (dev * dev).sum(-1), zero)
+        forces = forces + torch.where(oob[..., None], -oob_k * dev, zero)
     return GridEval(per_atom.sum(-1), forces, per_atom)
 
 

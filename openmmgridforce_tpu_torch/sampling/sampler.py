@@ -18,6 +18,13 @@ Random numbers: moves chosen on the host come from
 ``np.random.default_rng(seed + 1)``, as in the JAX package, so both pick
 the same moves for one seed; draws on the device (velocities, Langevin
 noise, exchange pairs) come from the sampler's ``torch.Generator``.
+
+With a mesh (``parallel.Mesh``) the rungs split over its ``dp`` axis and
+each rank advances its rows. The Monte Carlo sweeps need every rung: the
+positions are all-gathered, and every rank runs the same sweep on the
+whole ladder from the same host rng and generator (seeded alike on every
+rank) and keeps its rows. Every draw is of the whole ladder, so a run on
+dp ranks repeats the one-rank run.
 """
 
 from __future__ import annotations
@@ -31,7 +38,8 @@ import torch
 from ..device import resolve_device
 from ..mm.integrators import MDState
 from ..mm.system import GridBinding, System, energy_and_forces, make_md_runner
-from ..parallel.replicas import redraw_hot_velocities
+from ..parallel.replicas import (redraw_hot_velocities, replica_noise,
+                                 replica_rows)
 from ..units import BOLTZ
 from . import bat
 
@@ -90,13 +98,25 @@ class Sampler:
 
     def __init__(self, system: System, grids: Sequence[GridBinding],
                  positions, config: SamplerConfig, bonds=None, mesh=None,
-                 device=None):
+                 mesh_axis: str = "dp", device=None):
         """``positions`` [N, 3] start every rung; ``bonds`` (pairs of atom
         indices) enable genetic MC. ``system`` and ``grids`` must live on
-        ``device``."""
+        ``device`` (default: the mesh's).
+
+        ``mesh``: the rungs split over its ``mesh_axis``; ``n_states`` must
+        divide by the axis size. If the mesh also has an ``sp`` axis of
+        more than one rank, the grids must be one packed binding (any
+        type ``parallel.shard_packed_grid`` takes, or a ShardedPackedGrid
+        already split over sp, as ``pack_sharded`` makes it), else
+        ``ValueError``: its table splits over sp."""
+        self.mesh, self._mesh_axis = mesh, mesh_axis
         if mesh is not None:
-            raise NotImplementedError(
-                "a replica mesh is not ported yet (ROADMAP Queue A item 15)")
+            n_dev = mesh.size(mesh_axis)
+            if config.n_states % n_dev:
+                raise ValueError(
+                    f"n_states={config.n_states} must be divisible by the "
+                    f"'{mesh_axis}' axis size {n_dev}")
+            device = mesh.device if device is None else device
         self.device = resolve_device(device)
         if system.masses.device != self.device:
             raise ValueError(f"the system is on {system.masses.device}, the "
@@ -114,13 +134,19 @@ class Sampler:
         dtype = system.masses.dtype
         x0 = torch.as_tensor(positions, dtype=dtype, device=self.device)
         n = config.n_states
-        self.states = MDState(x0.expand(n, *x0.shape).clone(),
-                              torch.zeros((n,) + tuple(x0.shape),
+        self._rows = (slice(0, n) if mesh is None
+                      else replica_rows(mesh, n, mesh_axis))
+        n_local = self._rows.stop - self._rows.start
+        self.states = MDState(x0.expand(n_local, *x0.shape).clone(),
+                              torch.zeros((n_local,) + tuple(x0.shape),
                                           dtype=dtype, device=self.device),
                               self.generator)
         self._temps = torch.as_tensor(self.temperatures, dtype=dtype,
                                       device=self.device)
         self._betas = torch.as_tensor(self.betas, device=self.device)
+        if (mesh is not None and "sp" in mesh.axis_names
+                and mesh.size("sp") > 1):
+            self.grids = [self._shard_grid()]
 
         # BAT machinery for genetic MC
         self._zmatrix = None
@@ -137,9 +163,60 @@ class Sampler:
         self.n_gmc_attempted = 0
 
     # ------------------------------------------------------------------
+    def _shard_grid(self) -> GridBinding:
+        """The one packed binding with its table split over the mesh's sp
+        axis."""
+        from ..ops.packed import (HermitePackedGrid, MultiHermitePackedGrid,
+                                  MultiPackedGrid, PackedGrid)
+        from ..parallel.sharded_grid import (ShardedPackedGrid,
+                                             shard_packed_grid)
+
+        n_sp = self.mesh.size("sp")
+        if len(self.grids) != 1:
+            raise ValueError(
+                f"an sp axis of {n_sp} ranks splits one packed table; got "
+                f"{len(self.grids)} grid bindings (fuse them: "
+                f"pack_grids_fused, or pack_sharded from slabs)")
+        binding = self.grids[0]
+        grid = binding.grid
+        if isinstance(grid, (PackedGrid, MultiPackedGrid, HermitePackedGrid,
+                             MultiHermitePackedGrid)):
+            grid = shard_packed_grid(grid, self.mesh, axis="sp")
+        elif not (isinstance(grid, ShardedPackedGrid)
+                  and grid.mesh is self.mesh and grid.axis == "sp"):
+            raise ValueError(
+                f"an sp axis of {n_sp} ranks splits a packed table; got a "
+                f"{type(grid).__name__} (pack it: pack_grid, "
+                f"pack_grids_fused, pack_sharded)")
+        return GridBinding(grid=grid, scaling=binding.scaling)
+
     def _energies(self, positions):
-        """Potential energies [B] of conformations [B, N, 3]."""
+        """Potential energies [B] of conformations [B, N, 3] (a collective
+        when the table is split over sp)."""
         return energy_and_forces(self.system, self.grids, positions)[0]
+
+    def positions(self):
+        """Every rung's positions [R, N, 3] (all-gathered over the mesh: a
+        collective)."""
+        x = self.states.positions
+        if self.mesh is None:
+            return x
+        return self.mesh.all_gather(x, self._mesh_axis)
+
+    def global_states(self) -> MDState:
+        """Every rung's positions and velocities (a collective under a
+        mesh), with the sampler's generator."""
+        v = self.states.velocities
+        if self.mesh is not None:
+            v = self.mesh.all_gather(v, self._mesh_axis)
+        return MDState(self.positions(), v, self.generator)
+
+    def _ladder_draw(self):
+        """Fresh normals [R, N, 3] of the whole ladder; this rank's rows."""
+        x = self.states.positions
+        shape = (self.config.n_states,) + tuple(x.shape[1:])
+        return torch.randn(shape, generator=self.generator, dtype=x.dtype,
+                           device=x.device)[self._rows]
 
     def run_md(self, n_steps: Optional[int] = None, *, velocities=None,
                noise=None):
@@ -151,19 +228,23 @@ class Sampler:
         the generator's draws (the tests replay the JAX package's)."""
         n = int(n_steps or self.config.md_steps_per_trial)
         x = self.states.positions
+        temps = self._temps[self._rows]
         if velocities is None:
-            sigma_v = torch.sqrt(BOLTZ * self._temps[:, None]
+            sigma_v = torch.sqrt(BOLTZ * temps[:, None]
                                  / self.system.masses)[..., None]
-            velocities = sigma_v * torch.randn(
-                x.shape, generator=self.generator, dtype=x.dtype,
-                device=x.device)
+            velocities = sigma_v * self._ladder_draw()
+        state = MDState(x, velocities, self.generator)
+        if noise is None and self.mesh is not None:
+            noise = replica_noise(self.generator, n, x.shape, x.dtype,
+                                  self.mesh, self._mesh_axis,
+                                  blocks=x.is_cuda)
         run = make_md_runner(n, self.config.dt, self.config.friction,
                              device=self.device)
-        self.states = run(MDState(x, velocities, self.generator),
-                          self.system, self.grids, self._temps, noise=noise)
+        self.states = run(state, self.system, self.grids, temps, noise=noise)
 
     def potential_energies(self) -> np.ndarray:
-        return self._energies(self.states.positions).cpu().numpy().astype(
+        """Every rung's potential energy (a collective under a mesh)."""
+        return self._energies(self.positions()).cpu().numpy().astype(
             np.float64)
 
     def drain_trapped(self, threshold_factor: float = 5.0) -> int:
@@ -177,9 +258,11 @@ class Sampler:
         segments, not during production sampling). Returns the number
         re-drawn.
         """
-        self.states, n = redraw_hot_velocities(
-            self.states, self.system.masses, self._temps,
+        states, n = redraw_hot_velocities(
+            self.global_states(), self.system.masses, self._temps,
             threshold_factor * self._temps)
+        self.states = MDState(states.positions[self._rows],
+                              states.velocities[self._rows], self.generator)
         return n
 
     # ------------------------------------------------------------------
@@ -191,7 +274,8 @@ class Sampler:
         return int(isel), int(jsel)
 
     def _set_positions(self, positions):
-        self.states = self.states._replace(positions=positions)
+        """Every rung's new positions [R, N, 3]; this rank keeps its rows."""
+        self.states = self.states._replace(positions=positions[self._rows])
 
     def replica_exchange(self) -> int:
         """One temperature-exchange attempt (reference selection rule,
@@ -208,7 +292,7 @@ class Sampler:
             self.n_exchange_accepted += 1
             perm = np.arange(self.config.n_states)
             perm[[isel, jsel]] = perm[[jsel, isel]]
-            self._set_positions(self.states.positions[
+            self._set_positions(self.positions()[
                 torch.as_tensor(perm, device=self.device)])
         return int(accept)
 
@@ -216,7 +300,8 @@ class Sampler:
         """``n_attempts`` Metropolis exchange attempts on the device (same
         selection rule as replica_exchange; the generator's draws)."""
         R = self.config.n_states
-        energies = self._energies(self.states.positions)
+        positions = self.positions()
+        energies = self._energies(positions)
         i = torch.randint(0, R, (n_attempts,), generator=self.generator,
                           device=self.device)
         j = torch.randint(0, R, (n_attempts,), generator=self.generator,
@@ -224,7 +309,7 @@ class Sampler:
         u = torch.rand(n_attempts, generator=self.generator,
                        dtype=self._betas.dtype, device=self.device)
         perm, n_acc = exchange_sweep(energies, self._betas, i, j, u)
-        self._set_positions(self.states.positions[perm])
+        self._set_positions(positions[perm])
         n_acc = int(n_acc)
         self.n_exchange_attempted += n_attempts
         self.n_exchange_accepted += n_acc
@@ -275,7 +360,7 @@ class Sampler:
         if self._zmatrix is None:
             raise RuntimeError("genetic MC needs bonds= at construction")
         isel, jsel = self._pick_low_high()
-        positions = self.states.positions
+        positions = self.positions()
         pos = positions.cpu().numpy()
         if energies is None:
             energies = self.potential_energies()
@@ -322,7 +407,7 @@ class Sampler:
         one batch per chain of invalidations."""
         if self._zmatrix is None:
             raise RuntimeError("genetic MC needs bonds= at construction")
-        pos = self.states.positions
+        pos = self.positions()
         if energies is None:
             energies = self.potential_energies()
         energies = np.array(energies, dtype=float)

@@ -74,10 +74,14 @@ def load_pytree(path, like):
 
 
 def save_sampler(path, sampler) -> None:
-    """Checkpoint a sampling.Sampler: replica states with the generator's
-    state (``{path}.states.npz``), the host rng's state and the MC
-    counters (``{path}.meta.json``)."""
-    save_pytree(f"{path}.states.npz", sampler.states)
+    """Checkpoint a sampling.Sampler: every rung's state with the
+    generator's state (``{path}.states.npz``), the host rng's state and
+    the MC counters (``{path}.meta.json``). Under a mesh every rank calls
+    it (the states are gathered) and rank 0 writes."""
+    states = sampler.global_states()
+    if sampler.mesh is not None and sampler.mesh.rank != 0:
+        return
+    save_pytree(f"{path}.states.npz", states)
     meta = {
         "rng_state": sampler._rng.bit_generator.state,
         "n_exchange_accepted": sampler.n_exchange_accepted,
@@ -90,8 +94,12 @@ def save_sampler(path, sampler) -> None:
 
 
 def load_sampler(path, sampler) -> None:
-    """Restore a checkpoint into an already-constructed Sampler."""
-    sampler.states = load_pytree(f"{path}.states.npz", sampler.states)
+    """Restore a checkpoint into an already-constructed Sampler (under a
+    mesh, on every rank: each keeps its rows)."""
+    states = load_pytree(f"{path}.states.npz", sampler.global_states())
+    rows = sampler._rows
+    sampler.states = type(states)(states.positions[rows],
+                                  states.velocities[rows], states.generator)
     with open(f"{path}.meta.json") as fh:
         meta = json.load(fh)
     sampler._rng.bit_generator.state = meta["rng_state"]

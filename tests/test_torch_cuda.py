@@ -756,3 +756,113 @@ def test_api_update_parameters_frees_the_recording(cuda):
     ctx.getIntegrator().step(8)
     assert any(b.graph is not None for b in ctx._segment._blocks.values())
     assert np.isfinite(ctx.getPositions()).all()
+
+
+# ----------------------------------------------------------------------
+# Scale-out: ranks on the one card
+# ----------------------------------------------------------------------
+
+_SCALEOUT_GRID = ((23, 19, 21), (0.05, 0.05, 0.05), (0.0, -0.2, 0.3))
+
+
+def _scaleout_receptor():
+    rng = np.random.default_rng(71)
+    n = 257
+    return (rng.uniform(-0.3, 1.2, (n, 3)), rng.uniform(-1, 1, n),
+            rng.uniform(0.2, 0.35, n), rng.uniform(0.1, 1.0, n))
+
+
+def _sharded_generation_worker(device):
+    """K1 and K2 slabs of 2 ranks (gloo) on the card, gathered; and the
+    launches each rank made."""
+    from openmmgridforce_tpu_torch.parallel import (Mesh,
+                                                    generate_grid_sharded)
+
+    mesh = Mesh((2,), ("sp",), device)
+    cuda_gridgen.gridgen_values.launches = 0
+    cuda_gridgen_derivs.gridgen_derivs.launches = 0
+    out = {}
+    for derivs in (False, True):
+        slab = generate_grid_sharded(mesh, *_SCALEOUT_GRID, "ljr",
+                                     *_scaleout_receptor(), grid_cap=800.0,
+                                     compute_derivatives=derivs)
+        out[derivs] = slab.gather()
+    return {"vals": out[False].vals, "derivs": out[True].derivs,
+            "launches": (cuda_gridgen.gridgen_values.launches,
+                         cuda_gridgen_derivs.gridgen_derivs.launches)}
+
+
+def test_sharded_generation_on_the_card_matches_one_rank(cuda):
+    """Two gloo ranks on cuda:0 each launch K1 and K2 once at their x
+    offset; the gathered grids equal one rank's bit for bit."""
+    from openmmgridforce_tpu_torch.parallel import distributed
+
+    ranks = distributed.launch(_sharded_generation_worker, 2,
+                               backend="gloo")
+    kw = dict(grid_cap=800.0, device=cuda)
+    vals = gridgen.generate_grid(*_SCALEOUT_GRID, "ljr",
+                                 *_scaleout_receptor(), **kw).vals
+    derivs = gridgen.generate_grid(*_SCALEOUT_GRID, "ljr",
+                                   *_scaleout_receptor(),
+                                   compute_derivatives=True, **kw).derivs
+    for r in ranks:
+        assert r["launches"] == (1, 1)
+        assert torch.equal(r["vals"], vals.cpu())
+        assert torch.equal(r["derivs"], derivs.cpu())
+
+
+def _nccl_runner_worker(device):
+    """A one-rank NCCL mesh's sharded runner: recorded (the all-reduce in
+    the graph) against eager launches, under one explicit noise."""
+    import torch.distributed as dist
+
+    from openmmgridforce_tpu_torch.grid import InterpolationMethod
+    from openmmgridforce_tpu_torch.mm import MDState, graphs
+    from openmmgridforce_tpu_torch.mm import system as msys
+    from openmmgridforce_tpu_torch.ops import packed
+    from openmmgridforce_tpu_torch.parallel import (Mesh,
+                                                    make_sharded_md_runner,
+                                                    shard_packed_grid)
+
+    lig, x, rec, rec_x = chip_smoke.synthetic_complex(5, n_ligand=15,
+                                                      n_receptor=200)
+    counts, origin = chip_smoke.grid_box(x, 0.05)
+    grids = [gridgen.generate_grid(
+        counts, (0.05,) * 3, origin, gt, rec_x, rec.charges, rec.sigmas,
+        rec.epsilons, interp_method=InterpolationMethod.BSPLINE,
+        device=device) for gt in ("charge", "ljr", "lja")]
+    scaling = torch.as_tensor(np.stack([gridgen.auto_scaling_factors(
+        gt, lig.charges, lig.sigmas, lig.epsilons)
+        for gt in ("charge", "ljr", "lja")]), dtype=torch.float32,
+        device=device)
+    mesh = Mesh((1, 1), ("dp", "sp"), device)
+    table = shard_packed_grid(packed.pack_grids_fused(grids, device=device),
+                              mesh)
+    system = msys.system_from_amber(lig, dtype=torch.float32,
+                                    device=device)
+    xs = torch.as_tensor(x, dtype=torch.float32, device=device)
+    start = MDState(xs.expand(64, *xs.shape).clone(),
+                    torch.zeros((64,) + xs.shape, device=device), None)
+    noise = torch.randn((12, 64) + xs.shape, device=device,
+                        generator=torch.Generator(device).manual_seed(2))
+    run = make_sharded_md_runner(mesh, 12, 0.001, 5.0)
+    before = graphs.RECORDINGS["count"]
+    graph = run(start, system, table, scaling, 300.0, noise=noise)
+    recorded = graphs.RECORDINGS["count"] - before
+    with graphs.eager():
+        eager = run(start, system, table, scaling, 300.0, noise=noise)
+    return {"backend": dist.get_backend(), "mode": run.mode,
+            "recorded": recorded, "graph": graph.positions,
+            "eager": eager.positions, "start": start.positions}
+
+
+def test_nccl_runner_records_its_all_reduce(cuda):
+    """World size 1 on NCCL: the dp x sp runner records its segment with
+    the NCCL all-reduce inside, bit for bit against eager launches."""
+    from openmmgridforce_tpu_torch.parallel import distributed
+
+    r = distributed.launch(_nccl_runner_worker, 1, backend="nccl")[0]
+    assert r["backend"] == "nccl" and r["mode"] == "recorded"
+    assert r["recorded"] >= 1
+    assert torch.equal(r["graph"], r["eager"])
+    assert float((r["graph"] - r["start"]).abs().max()) > 1e-4

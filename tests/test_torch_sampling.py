@@ -1,11 +1,13 @@
 """The port's BPMF sampler path vs the JAX package (float64, CPU): BAT
 converters, the exchange sweep on JAX's draws, genetic MC from one seed,
 an HBonds-constrained ladder segment on slab-packed fused grids with JAX's
-velocities and noise replayed, the velocity re-draw, checkpoints, and the
-example on files written here."""
+velocities and noise replayed, the velocity re-draw, checkpoints, the
+replica mesh on gloo ranks against one process, and the example on files
+written here (on one process and on 2 dp ranks)."""
 
 import importlib.util
 import json
+import sys
 from pathlib import Path
 
 import jax
@@ -30,7 +32,9 @@ from openmmgridforce_tpu_torch.parallel import (redraw_hot_velocities,
 from openmmgridforce_tpu_torch.sampling import (Sampler, SamplerConfig, bat,
                                                 exchange_sweep)
 from openmmgridforce_tpu_torch.units import BOLTZ
+from openmmgridforce_tpu_torch.parallel import distributed
 from openmmgridforce_tpu_torch.utils import load_sampler, save_sampler
+from test_torch_scaleout import sampler_worker
 
 torch.set_num_threads(1)
 
@@ -314,11 +318,54 @@ def test_checkpoint_round_trip(complex_, tmp_path):
     assert first[2] == again[2]
 
 
-def test_sampler_refuses_a_mesh(complex_):
-    _, _, _, _, ts, tb, _ = complex_
-    with pytest.raises(NotImplementedError, match="item 15"):
-        Sampler(ts, [tb], np.zeros((ts.masses.shape[0], 3)),
-                SamplerConfig(n_states=2), mesh=object(), device="cpu")
+MESH_STATES = 6
+MESH_TRIALS = 2
+MESHES = {"dp3": (3,), "dp3_sp2": (3, 2)}
+
+
+@pytest.fixture(scope="module")
+def mesh_samplers():
+    """A 6-state ladder, 2 trials: on one process, and on gloo ranks of
+    a dp = 3 and a dp x sp = 3 x 2 mesh (``test_torch_scaleout.
+    sampler_worker``; the ranks import no JAX)."""
+    one = sampler_worker("cpu", None, MESH_STATES, MESH_TRIALS)
+    ranks = {name: distributed.launch(
+        sampler_worker, int(np.prod(shape)),
+        (shape, MESH_STATES, MESH_TRIALS), device="cpu")
+        for name, shape in MESHES.items()}
+    return one, ranks
+
+
+def test_sampler_refuses_a_mesh(mesh_samplers):
+    """A ladder that does not divide over the mesh's dp axis is refused
+    with the JAX package's message; a dividing one splits its rungs. An
+    sp axis of 2 ranks refuses two grid bindings: it splits one table."""
+    for name, ranks in mesh_samplers[1].items():
+        for rank in ranks:
+            assert rank["error"] == (f"n_states={MESH_STATES + 1} must be "
+                                     f"divisible by the 'dp' axis size 3")
+            assert rank["local_rungs"] == MESH_STATES // 3
+            if name == "dp3_sp2":
+                assert "got 2 grid bindings" in rank["sp_error"]
+            else:
+                assert "sp_error" not in rank
+
+
+@pytest.mark.parametrize("name", list(MESHES))
+def test_sampler_mesh_matches_one_process(mesh_samplers, name):
+    """Every rank ends with the one-process ladder: energies, positions,
+    velocities and acceptance counts, bit for bit (every draw is of the
+    whole ladder; the constraint sweeps are per replica)."""
+    one, ranks = mesh_samplers[0], mesh_samplers[1][name]
+    assert one["counts"][0] == 3 * MESH_TRIALS and one["counts"][2] == \
+        2 * MESH_TRIALS
+    assert one["counts"][1] > 0 and one["n_redrawn"] > 0
+    for rank in ranks:
+        assert rank["counts"] == one["counts"]
+        assert rank["n_redrawn"] == one["n_redrawn"]
+        np.testing.assert_array_equal(rank["energies"], one["energies"])
+        for key in ("positions", "velocities"):
+            assert torch.equal(rank[key], one[key])
 
 
 def _load_example():
@@ -329,9 +376,10 @@ def _load_example():
     return module
 
 
-def test_example_runs_on_cpu(tmp_path, capsys):
+def test_example_runs_on_cpu(tmp_path, capsys, monkeypatch):
     """examples/bpmf_sampler_torch.py --device cpu --generate-grids on
-    AMBER files written here: 2 trials of a 3-state ladder."""
+    AMBER files written here: 2 trials of a 3-state ladder, on one process
+    and on 2 dp ranks (4 states: the ladder divides over dp)."""
     from test_torch_mm import write_inpcrd, write_prmtop
 
     lig, x, rec, rec_x = chip_smoke.synthetic_complex(
@@ -368,5 +416,30 @@ def test_example_runs_on_cpu(tmp_path, capsys):
     energies = np.loadtxt(tmp_path / "out" / "energies.dat")
     assert energies.shape == (2, 3) and np.isfinite(energies).all()
     assert (tmp_path / "out" / "traj.xyz").read_text().count("state 0") == 2
-    with pytest.raises(NotImplementedError, match="item 15"):
-        example.main(argv + ["--generate-grids", "--dp", "2"])
+    # --dp 2 on a 4-state ladder (it divides over dp): the example starts
+    # 2 gloo ranks of its own, so it must be importable by name in them;
+    # rank 0 writes what one process writes
+    monkeypatch.setitem(sys.modules, "bpmf_sampler_torch", example)
+    monkeypatch.syspath_prepend(str(ROOT / "examples"))
+    (tmp_path / "input.json").write_text(json.dumps({**cfg, "nstate": 4}))
+    one = example.main(argv + ["--generate-grids", "--work-dir",
+                               str(tmp_path / "one")])
+    summary = example.main(argv + ["--generate-grids", "--work-dir",
+                                   str(tmp_path / "mesh"), "--dp", "2"])
+    assert summary["n_exchange_attempted"] == one.n_exchange_attempted == 4
+    assert summary["n_gmc_attempted"] == one.n_gmc_attempted == 4
+    # float32 on the host: a rank's batch of 2 rungs rounds apart from the
+    # one process's batch of 4 (test_sampler_mesh_matches_one_process
+    # holds the float64 ladder bit for bit)
+    np.testing.assert_allclose(summary["energies"],
+                               one.potential_energies(), rtol=1e-4)
+    mesh_energies = np.loadtxt(tmp_path / "mesh" / "energies.dat")
+    assert mesh_energies.shape == (2, 4)
+    np.testing.assert_allclose(mesh_energies,
+                               np.loadtxt(tmp_path / "one" / "energies.dat"),
+                               rtol=1e-4)
+    assert (tmp_path / "mesh" / "traj.xyz").read_text().count(
+        "state 3") == 2
+    # --sp splits the generated fused table; the grid files are a pack each
+    with pytest.raises(SystemExit, match="--sp splits the fused table"):
+        example.main(argv + ["--dp", "1", "--sp", "2"])
