@@ -21,9 +21,16 @@ launcher with several gloo ranks on the one card: x-slab generation
 through both kernels on every rank, packs made from the slabs with a halo
 exchange, sharded evaluation, dp x sp MD, the distributed screen and the
 sampler's replica mesh, each against one rank, and a one-rank NCCL mesh
-whose MD segment is recorded with its all-reduce inside. Then the
-out-of-core path: float64 generation through the kernels' float64
-instantiations, grids generated tile by tile into OMGTILE files (the bench
+whose MD segment is recorded with its all-reduce inside; the launcher
+prints each launch's seconds by stage. Then the out-of-core path: float64
+generation through the kernels' float64 instantiations; accuracy_path,
+the port against physics (the reference's grid-vs-pairwise accuracy suite
+through float32 and float64 K1/K2, in memory and through tiled files,
+against a float64 pair sum at its 2% / 5% gates; NVE energy conservation
+of 1,000 replicas over 3,000 recorded Verlet steps on packed and unpacked
+grids; the bench box's energies against the pair sum over the receptor;
+generate_grid's memory guard: its factors against the peaks measured
+here, a request past the budget refused before any launch); grids generated tile by tile into OMGTILE files (the bench
 box, and the reference's 520 x 695 x 578-point stress box, three 0.84 GB
 files in a temporary directory deleted at the end), streamed evaluation
 over the native tile cache against the whole grids on the card, and a
@@ -2368,6 +2375,485 @@ def phase_float64_generation(torch, rec, rec_crd, counts, origin):
     return launches
 
 
+# ----------------------------------------------------------------------
+# accuracy_path: the port held against physics on the card
+# ----------------------------------------------------------------------
+
+ACCURACY_GATE = 0.02           # the reference's accuracy scripts' gate
+ACCURACY_GATE_INVPOWER = 0.05  # with an inverse-power transform
+ACCURACY_METHODS = ("TRILINEAR", "BSPLINE", "TRICUBIC", "TRIQUINTIC")
+ACCURACY_TILE = 16
+NVE_REPLICAS = 1000
+NVE_STEPS = 3000
+NVE_DT = 0.001                 # ps
+NVE_GATE = {"float64": 1e-5, "float32": 1e-3}   # |dE| / (|E0| + 1)
+N_PHYSICS_POSES = 64
+NEAR_CAP = 0.9                 # a grid value within 10% of the cap
+
+
+def accuracy_geometry():
+    """tests/test_grid_vs_pairwise.py's geometry, drawn as it draws it: a
+    48-atom receptor shell 1 nm around an 8-atom ligand cloud, a 31^3
+    grid at 0.02 nm (every value far below the cap)."""
+    rng = np.random.default_rng(7)
+    u = rng.standard_normal((48, 3))
+    geo = {"REC_POS": 0.5 + u / np.linalg.norm(u, axis=1, keepdims=True),
+           "REC_Q": rng.uniform(-0.6, 0.6, 48),
+           "REC_SIG": rng.uniform(0.25, 0.35, 48),
+           "REC_EPS": rng.uniform(0.3, 0.8, 48),
+           "LIG_POS": 0.5 + rng.uniform(-0.12, 0.12, (8, 3)),
+           "LIG_Q": rng.uniform(-0.4, 0.4, 8),
+           "LIG_SIG": rng.uniform(0.25, 0.35, 8),
+           "LIG_EPS": rng.uniform(0.3, 0.8, 8),
+           "COUNTS": (31, 31, 31), "SPACING": (0.02, 0.02, 0.02),
+           "ORIGIN": (0.2, 0.2, 0.2)}
+    return geo
+
+
+def pairwise_energies(grid_type, lig_pos, lig_q, lig_sig, lig_eps, rec_pos,
+                      rec_q, rec_sig, rec_eps):
+    """The uncapped float64 pair sum of ligand poses [..., L, 3] over the
+    receptor's atoms, with the grids' geometric-mean pair decomposition
+    (Rmin = 2^(1/6) sigma): energies [...]."""
+    from openmmgridforce_tpu_torch.units import (COULOMB_CONST,
+                                                 TWO_POW_ONE_SIXTH)
+
+    d = np.linalg.norm(lig_pos[..., :, None, :] - rec_pos, axis=-1)
+    if grid_type == "charge":
+        pair = COULOMB_CONST * np.outer(lig_q, rec_q) / d
+    else:
+        se = np.sqrt(np.outer(lig_eps, rec_eps))
+        p = 6 if grid_type == "ljr" else 3
+        rr = np.outer((TWO_POW_ONE_SIXTH * lig_sig) ** p,
+                      (TWO_POW_ONE_SIXTH * rec_sig) ** p)
+        pair = (se * rr / d ** 12 if grid_type == "ljr"
+                else -2.0 * se * rr / d ** 6)
+    return pair.sum((-2, -1))
+
+
+def accuracy_pairwise(geo, grid_type, lig_q=None, rec_q=None):
+    """tests/test_grid_vs_pairwise.py's oracle on ``geo``."""
+    return float(pairwise_energies(
+        grid_type, geo["LIG_POS"],
+        geo["LIG_Q"] if lig_q is None else lig_q, geo["LIG_SIG"],
+        geo["LIG_EPS"], geo["REC_POS"],
+        geo["REC_Q"] if rec_q is None else rec_q, geo["REC_SIG"],
+        geo["REC_EPS"]))
+
+
+def nve_shell(n_replicas, seed=23):
+    """tests/test_physics.py's confining field and start: 26 r^-12 wall
+    sources 0.62 nm around the centre of a 14^3 box at 0.08 nm, 5 atoms
+    of mass 10 scaled 1e-3; positions drawn as that test draws them and
+    velocities 0.1 x normal for ``n_replicas`` (replica 0's are the
+    test's). Returns (counts, spacing, origin, sources, x0 [5, 3],
+    v0 [R, 5, 3])."""
+    rng = np.random.default_rng(seed)
+    dirs = np.array([(i, j, k) for i in (-1, 0, 1) for j in (-1, 0, 1)
+                     for k in (-1, 0, 1) if (i, j, k) != (0, 0, 0)], float)
+    src = 0.52 + 0.62 * dirs / np.linalg.norm(dirs, axis=1, keepdims=True)
+    x0 = rng.uniform(0.42, 0.62, (5, 3))
+    v0 = 0.1 * rng.standard_normal((n_replicas, 5, 3))
+    return (14, 14, 14), (0.08,) * 3, (0.0,) * 3, src, x0, v0
+
+
+def _counted(launches, suffix, fn):
+    """``fn()``, its K1 and K2 launches added to ``launches``."""
+    kernels = _reset_launches()
+    out = fn()
+    for name, k in zip(("gridgen_values", "gridgen_derivs"), kernels):
+        launches[name + suffix] += k.launches
+    return out
+
+
+def _accuracy_suite(torch, geo, device, launches):
+    """The 12 cases and three inverse-power cases of
+    test_grid_vs_pairwise.py in float32 (K1/K2 float32, packs: B-spline
+    and trilinear rows, tricubic and triquintic Chebyshev rows) and in
+    float64 (K1/K2 float64, unpacked grids as the Context evaluates
+    them). Returns {case: {dtype: relative error}} and the gates."""
+    from openmmgridforce_tpu_torch.grid import InterpolationMethod, InvPowerMode
+    from openmmgridforce_tpu_torch.ops import gridgen
+    from openmmgridforce_tpu_torch.ops.interpolate import evaluate_grid
+    from openmmgridforce_tpu_torch.ops.packed import (evaluate_packed,
+                                                      pack_grid)
+
+    rec_q_pos = np.abs(geo["REC_Q"]) + 0.05
+    lig_q_pos = np.abs(geo["LIG_Q"]) + 0.05
+    rec = (geo["REC_POS"], geo["REC_Q"], geo["REC_SIG"], geo["REC_EPS"])
+    rec_pos_q = (geo["REC_POS"], rec_q_pos, geo["REC_SIG"], geo["REC_EPS"])
+    geom = (geo["COUNTS"], geo["SPACING"], geo["ORIGIN"])
+    # case: (grid type, receptor, derivatives, stored power, runtime
+    # power, methods, ligand charges or None for the auto scalings, gate)
+    cases = {}
+    for gt in GRID_TYPES:
+        for derivs in (False, True):
+            methods = ACCURACY_METHODS[2:] if derivs else ACCURACY_METHODS[:2]
+            cases[(gt, derivs)] = (gt, rec, derivs, 0.0, None, methods, None,
+                                   ACCURACY_GATE)
+    cases["stored_n2"] = ("charge", rec_pos_q, False, 2.0, None,
+                          ("BSPLINE",), lig_q_pos, ACCURACY_GATE_INVPOWER)
+    cases["stored_nm12"] = ("ljr", rec, True, -12.0, None, ("TRIQUINTIC",),
+                            None, ACCURACY_GATE_INVPOWER)
+    cases["runtime_n2"] = ("charge", rec_pos_q, False, 0.0, 2.0,
+                           ("BSPLINE",), lig_q_pos, ACCURACY_GATE_INVPOWER)
+    out, gates, energies = {}, {}, {}
+    for dtype, suffix in ((torch.float32, ""), (torch.float64, "_f64")):
+        name = str(dtype).split(".")[-1]
+        x = torch.as_tensor(geo["LIG_POS"], dtype=dtype, device=device)
+        for key, (gt, r, derivs, stored, runtime, methods, lig_q,
+                  gate) in cases.items():
+            grid = _counted(launches, suffix, lambda: gridgen.generate_grid(
+                *geom, gt, *r, compute_derivatives=derivs, inv_power=stored,
+                inv_power_mode=(InvPowerMode.STORED if stored
+                                else InvPowerMode.NONE),
+                dtype=dtype, device=device))
+            if runtime is not None:
+                grid = dataclasses.replace(
+                    grid, inv_power=runtime,
+                    inv_power_mode=int(InvPowerMode.RUNTIME))
+            s = (gridgen.auto_scaling_factors(gt, geo["LIG_Q"],
+                                              geo["LIG_SIG"], geo["LIG_EPS"])
+                 if lig_q is None else lig_q)
+            s = torch.as_tensor(s, dtype=dtype, device=device)
+            e_ref = accuracy_pairwise(geo, gt, lig_q=lig_q,
+                                      rec_q=None if r is rec else r[1])
+            for method in methods:
+                g = dataclasses.replace(grid, interp_method=int(
+                    InterpolationMethod[method]))
+                res = (evaluate_packed(pack_grid(g), x, s)
+                       if dtype == torch.float32 else evaluate_grid(g, x, s))
+                label = (f"{gt}/{method}" if isinstance(key, tuple)
+                         else key)
+                e = float(res.energy)
+                check(bool(torch.isfinite(res.forces).all()),
+                      f"accuracy {label} ({name}): non-finite forces")
+                out.setdefault(label, {})[name] = abs(e - e_ref) / abs(e_ref)
+                energies.setdefault(label, {})[name] = e
+                gates[label] = gate
+            del grid
+    for label, e in energies.items():
+        out[label]["float32_vs_float64"] = (abs(e["float32"] - e["float64"])
+                                            / abs(e["float64"]))
+    return out, gates
+
+
+def _accuracy_tiled(torch, geo, device, workdir, launches):
+    """test_grid_vs_pairwise.py's tiled copies: the ljr grid written
+    through generate_grid_to_tiled_file (float32 K1/K2 slabs, 16-point
+    tiles), then StreamedGridEvaluator by each method. Returns
+    {method: relative error}."""
+    from openmmgridforce_tpu_torch.grid import InterpolationMethod
+    from openmmgridforce_tpu_torch.io.streaming import StreamedGridEvaluator
+    from openmmgridforce_tpu_torch.ops import gridgen
+
+    e_ref = accuracy_pairwise(geo, "ljr")
+    s = gridgen.auto_scaling_factors("ljr", geo["LIG_Q"], geo["LIG_SIG"],
+                                     geo["LIG_EPS"]).astype(np.float32)
+    out = {}
+    for derivs in (False, True):
+        path = os.path.join(workdir, f"accuracy_ljr_{int(derivs)}.tiled")
+        _counted(launches, "", lambda: gridgen.generate_grid_to_tiled_file(
+            path, geo["COUNTS"], geo["SPACING"], geo["ORIGIN"], "ljr",
+            geo["REC_POS"], geo["REC_Q"], geo["REC_SIG"], geo["REC_EPS"],
+            tile_size=ACCURACY_TILE, compute_derivatives=derivs,
+            device=device))
+        methods = ACCURACY_METHODS[2:] if derivs else ACCURACY_METHODS[:2]
+        for method in methods:
+            ev = StreamedGridEvaluator(
+                path, interp_method=InterpolationMethod[method],
+                region_shape=(32, 32, 32), device=device)
+            res = ev.evaluate(geo["LIG_POS"].astype(np.float32), s)
+            check(bool(torch.isfinite(res.forces).all()),
+                  f"accuracy tiled {method}: non-finite forces")
+            out[method] = abs(float(res.energy) - e_ref) / abs(e_ref)
+            ev.close()
+        os.remove(path)
+    return out
+
+
+def _accuracy_nve(torch, device, n_replicas, n_steps, launches):
+    """test_physics.py's NVE check at scale: velocity Verlet on the
+    confining shell's B-spline and triquintic grids, unpacked and packed
+    (B-spline rows, triquintic Chebyshev rows), float64 and float32,
+    ``n_replicas`` replicas as one recorded segment of ``n_steps``.
+    Returns {case: figures}."""
+    from openmmgridforce_tpu_torch.grid import InterpolationMethod
+    from openmmgridforce_tpu_torch.mm.integrators import (MDState,
+                                                          make_verlet_step,
+                                                          run_segment)
+    from openmmgridforce_tpu_torch.mm.system import _eval_grid
+    from openmmgridforce_tpu_torch.ops import gridgen
+    from openmmgridforce_tpu_torch.ops.packed import pack_grid
+
+    counts, spacing, origin, src, x0, v0 = nve_shell(n_replicas)
+    n_src = len(src)
+    corner = np.asarray(origin) + (np.asarray(counts) - 1) * np.asarray(
+        spacing)
+    out = {}
+    for dtype, suffix in ((torch.float64, "_f64"), (torch.float32, "")):
+        name = str(dtype).split(".")[-1]
+        masses = torch.full((5,), 10.0, dtype=dtype, device=device)
+        scaling = torch.full((5,), 1e-3, dtype=dtype, device=device)
+        for method in ("BSPLINE", "TRIQUINTIC"):
+            derivs = method == "TRIQUINTIC"
+            grid = _counted(launches, suffix, lambda: gridgen.generate_grid(
+                counts, spacing, origin, "ljr", src, np.zeros(n_src),
+                np.full(n_src, 0.35), np.full(n_src, 0.5),
+                compute_derivatives=derivs,
+                interp_method=InterpolationMethod[method], dtype=dtype,
+                device=device))
+            routes = {"unpacked": grid, "packed": pack_grid(
+                grid, poly_basis="chebyshev" if derivs else None)}
+            for route, g in routes.items():
+                def energies(x, v):
+                    pe = _eval_grid(g, x, scaling).energy.double()
+                    ke = 0.5 * (masses.double()[:, None]
+                                * v.double() ** 2).sum((-2, -1))
+                    return pe + ke
+
+                x = torch.as_tensor(x0, dtype=dtype, device=device)
+                state = MDState(x.expand(n_replicas, 5, 3).clone(),
+                                torch.as_tensor(v0, dtype=dtype,
+                                                device=device), None)
+                step = make_verlet_step(
+                    lambda y: _eval_grid(g, y, scaling).forces, masses,
+                    NVE_DT)
+                e0 = energies(state.positions, state.velocities)
+                _sync(torch, device)
+                t0 = time.perf_counter()
+                end = run_segment(step, state, n_steps)
+                _sync(torch, device)
+                seconds = time.perf_counter() - t0
+                e1 = energies(end.positions, end.velocities)
+                drift = ((e1 - e0).abs() / (e0.abs() + 1.0)).cpu().numpy()
+                inside = ((end.positions >= torch.as_tensor(
+                    origin, dtype=dtype, device=device))
+                    & (end.positions <= torch.as_tensor(
+                        corner, dtype=dtype, device=device))).all((-2, -1))
+                out[f"{method.lower()}_{route}_{name}"] = {
+                    "seconds": seconds,
+                    "steps_per_s": n_steps / seconds,
+                    "median_drift": float(np.median(drift)),
+                    "max_drift": float(drift.max()),
+                    "gate": NVE_GATE[name],
+                    "replicas_outside": int((~inside).sum()),
+                    "finite": bool(torch.isfinite(end.positions).all())}
+            del grid, routes
+    return out
+
+
+def _bench_box_physics(torch, poses, lig, rec, rec_crd, counts, origin,
+                       device, launches):
+    """``poses`` [P, N, 3] of main_path on the bench box's float32 packs:
+    main_path's fused B-spline pack (K1) and deriv_path's fused
+    triquintic Chebyshev pack (K2), each grid type's energy against the
+    uncapped float64 pair sum over the receptor's atoms on the host.
+    Reported, not gated: the capped grid and the uncapped oracle part
+    where a value nears the cap."""
+    from openmmgridforce_tpu_torch.grid import InterpolationMethod
+    from openmmgridforce_tpu_torch.ops import gridgen
+    from openmmgridforce_tpu_torch.ops.packed import (combine_packed_grids,
+                                                      evaluate_multi,
+                                                      pack_grid)
+
+    spacing = (SPACING,) * 3
+    poses_np = np.asarray(poses, np.float64)
+    lig_args = (lig.charges, lig.sigmas, lig.epsilons)
+    rec_args = (rec.charges, rec.sigmas, rec.epsilons)
+    oracle = np.stack([np.concatenate([pairwise_energies(
+        gt, poses_np[p:p + 8], *lig_args, rec_crd, *rec_args)
+        for p in range(0, len(poses_np), 8)]) for gt in GRID_TYPES])
+    scal = np.stack([gridgen.auto_scaling_factors(gt, *lig_args)
+                     for gt in GRID_TYPES])
+    x = torch.as_tensor(poses_np, dtype=torch.float32, device=device)
+    out = {"poses": len(poses_np), "oracle_kJ_mol": {
+        gt: [float(v) for v in (oracle[i].min(), oracle[i].max())]
+        for i, gt in enumerate(GRID_TYPES)}}
+    for name, derivs, method in (("bspline_fused", False, "BSPLINE"),
+                                 ("triquintic_fused", True, "TRIQUINTIC")):
+        table = _counted(launches, "", lambda: combine_packed_grids([
+            pack_grid(gridgen.generate_grid(
+                counts, spacing, origin, gt, rec_crd, *rec_args,
+                grid_cap=GRID_CAP, compute_derivatives=derivs,
+                interp_method=InterpolationMethod[method], device=device))
+            for gt in GRID_TYPES]))
+        per = {}
+        near = torch.zeros(len(poses_np), dtype=torch.bool, device=device)
+        for i, gt in enumerate(GRID_TYPES):
+            only = np.zeros_like(scal)
+            only[i] = scal[i]
+            e = evaluate_multi(table, x, torch.as_tensor(
+                only, dtype=torch.float32, device=device)).energy
+            rel = np.abs(e.double().cpu().numpy() - oracle[i]) / np.abs(
+                oracle[i])
+            per[gt] = {"median_rel_err": float(np.median(rel)),
+                       "max_rel_err": float(rel.max())}
+            ones = np.zeros_like(scal)
+            ones[i] = 1.0
+            value = evaluate_multi(table, x, torch.as_tensor(
+                ones, dtype=torch.float32, device=device)).per_atom_energy
+            near |= (value.abs() > NEAR_CAP * GRID_CAP).any(-1)
+        per["poses_near_cap"] = int(near.sum())
+        out[name] = per
+        del table
+    return out
+
+
+def _memory_guard(torch, rec, rec_crd, counts, origin, device, launches):
+    """generate_grid's guard on the card: the peak device bytes of the
+    bench box's ljr requests over points x itemsize (values and 27
+    derivatives, each without and with a stored inverse power; float32
+    and float64), held
+    under the guard's factors; a request sized past the budget from
+    mem_get_info refused before any launch or allocation; api_path's
+    largest in-memory request (float64, 27 derivatives) passed."""
+    from openmmgridforce_tpu_torch.grid import InvPowerMode
+    from openmmgridforce_tpu_torch.ops import cuda_gridgen, cuda_gridgen_derivs
+    from openmmgridforce_tpu_torch.ops import gridgen
+
+    dev = torch.device(device)
+    spacing = (SPACING,) * 3
+    rec_args = (rec_crd, rec.charges, rec.sigmas, rec.epsilons)
+    points = int(np.prod(counts))
+    factors = {}
+    for name, dtype, derivs, power in (
+            ("values_f32", torch.float32, False, 0.0),
+            ("values_stored_f32", torch.float32, False, 2.0),
+            ("derivs_f32", torch.float32, True, 0.0),
+            ("derivs_stored_f32", torch.float32, True, -12.0),
+            ("values_f64", torch.float64, False, 0.0),
+            ("values_stored_f64", torch.float64, False, 2.0),
+            ("derivs_f64", torch.float64, True, 0.0),
+            ("derivs_stored_f64", torch.float64, True, -12.0)):
+        gc.collect()
+        torch.cuda.synchronize(dev)
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        g = _counted(launches, "_f64" if dtype == torch.float64 else "",
+                     lambda: gridgen.generate_grid(
+                         counts, spacing, origin, "ljr", *rec_args,
+                         grid_cap=GRID_CAP, compute_derivatives=derivs,
+                         inv_power=power,
+                         inv_power_mode=(InvPowerMode.STORED if power
+                                         else InvPowerMode.NONE),
+                         dtype=dtype, device=dev))
+        torch.cuda.synchronize(dev)
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        factors[name] = peak / (points * g.vals.element_size())
+        del g
+    gc.collect()
+    torch.cuda.empty_cache()
+    budget = gridgen._device_memory_budget(dev)
+    refused = {}
+    for name, derivs, factor in (
+            ("values", False, gridgen.GUARD_FACTOR_VALUES),
+            ("derivs", True, gridgen.GUARD_FACTOR_DERIVS)):
+        n = int(np.ceil((budget / (4 * factor)) ** (1.0 / 3.0))) + 1
+        before = (cuda_gridgen.gridgen_values.launches,
+                  cuda_gridgen_derivs.gridgen_derivs.launches,
+                  torch.cuda.memory_allocated(dev))
+        try:
+            gridgen.generate_grid((n, n, n), spacing, origin, "charge",
+                                  *rec_args, compute_derivatives=derivs,
+                                  device=dev)
+            message = None
+        except ValueError as e:
+            message = str(e)
+        after = (cuda_gridgen.gridgen_values.launches,
+                 cuda_gridgen_derivs.gridgen_derivs.launches,
+                 torch.cuda.memory_allocated(dev))
+        refused[name] = {"counts": [n] * 3, "points": n ** 3,
+                         "need_gb": n ** 3 * 4 * factor / 1e9,
+                         "raised": message, "untouched": before == after}
+    try:
+        gridgen._check_grid_fits(points, True, 8, dev)
+        largest_passes = True
+    except ValueError:
+        largest_passes = False
+    return {"budget_gb": budget / 1e9,
+            "guard_factors": {"values": gridgen.GUARD_FACTOR_VALUES,
+                              "derivs": gridgen.GUARD_FACTOR_DERIVS},
+            "measured_factors": factors, "refused": refused,
+            "api_path_largest_passes": largest_passes}
+
+
+def phase_accuracy_path(torch, smi, poses, lig, rec, rec_crd, counts,
+                        origin, workdir, device="cuda",
+                        nve_replicas=NVE_REPLICAS, nve_steps=NVE_STEPS):
+    """The port against physics on the card: the reference's accuracy
+    suite (tests/test_grid_vs_pairwise.py) through float32 and float64
+    K1/K2 in memory and float32 tiled files, at its 2% / 5% gates;
+    tests/test_physics.py's NVE conservation over ``nve_replicas``
+    replicas as one recorded segment, packed and unpacked, gated at 1e-5
+    (float64) and 1e-3 (float32) relative drift a replica; the bench
+    box's energies of main_path's ``poses`` against an uncapped float64
+    pair sum (reported); and generate_grid's memory guard. Returns the
+    phase's launches by kernel ("_f64" for the float64
+    instantiations)."""
+    geo = accuracy_geometry()
+    launches = {k + s: 0 for k in ("gridgen_values", "gridgen_derivs")
+                for s in ("", "_f64")}
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    suite, gates = _accuracy_suite(torch, geo, device, launches)
+    emit({"phase": "accuracy_suite", "card": smi,
+          "seconds": time.perf_counter() - t0,
+          "float32": "K1/K2 float32, packs (B-spline, trilinear; "
+                     "tricubic, triquintic Chebyshev)",
+          "float64": "K1/K2 float64, unpacked (evaluate_grid)",
+          "rel_err": suite, "gates": gates})
+    for label, r in suite.items():
+        for name in ("float32", "float64"):
+            check(r[name] < gates[label], f"accuracy {label} ({name}): "
+                  f"{r[name]:.4%} from the pair sum (gate {gates[label]})")
+    t0 = time.perf_counter()
+    tiled = _accuracy_tiled(torch, geo, device, workdir, launches)
+    emit({"phase": "accuracy_tiled", "card": smi,
+          "seconds": time.perf_counter() - t0, "rel_err": tiled,
+          "gate": ACCURACY_GATE})
+    for method, rel in tiled.items():
+        check(rel < ACCURACY_GATE, f"accuracy tiled {method}: {rel:.4%}")
+    t0 = time.perf_counter()
+    nve = _accuracy_nve(torch, device, nve_replicas, nve_steps, launches)
+    emit({"phase": "accuracy_nve", "card": smi,
+          "seconds": time.perf_counter() - t0, "replicas": nve_replicas,
+          "steps": nve_steps, "dt_ps": NVE_DT,
+          "segment": "velocity Verlet, CUDA graph replays"
+                     if torch.device(device).type == "cuda" else "eager",
+          "cases": nve})
+    for case, r in nve.items():
+        check(r["finite"], f"NVE {case}: non-finite positions")
+        check(r["max_drift"] < r["gate"], f"NVE {case}: a replica drifted "
+              f"{r['max_drift']:.3e} (gate {r['gate']})")
+    t0 = time.perf_counter()
+    physics = _bench_box_physics(torch, poses, lig, rec, rec_crd, counts,
+                                 origin, device, launches)
+    emit({"phase": "accuracy_bench_box", "card": smi,
+          "seconds": time.perf_counter() - t0, **physics})
+    if torch.device(device).type == "cuda":
+        t0 = time.perf_counter()
+        guard = _memory_guard(torch, rec, rec_crd, counts, origin, device,
+                              launches)
+        emit({"phase": "memory_guard", "card": smi,
+              "seconds": time.perf_counter() - t0, **guard})
+        for name, f in guard["measured_factors"].items():
+            limit = guard["guard_factors"][
+                "derivs" if name.startswith("derivs") else "values"]
+            check(f <= limit, f"memory guard: {name} peaks at {f:.2f} x "
+                  f"points x itemsize, above the guard's {limit}")
+        for name, r in guard["refused"].items():
+            check(r["raised"] is not None and "tiled" in r["raised"],
+                  f"memory guard: the {name} request was not refused")
+            check(r["untouched"], f"memory guard: the refused {name} "
+                  "request launched or allocated")
+        check(guard["api_path_largest_passes"], "memory guard: api_path's "
+              "float64 triquintic request is refused")
+    emit({"phase": "accuracy_path", "card": smi,
+          "seconds": time.perf_counter() - t_phase, "launches": launches})
+    return launches
+
+
 def stress_box(lig_crd):
     """The stress box centred on the ligand: (counts, origin)."""
     center = 0.5 * (lig_crd.min(0) + lig_crd.max(0))
@@ -3265,6 +3751,7 @@ def phase_scaleout_path(torch, seed, smi, device="cuda", spacing=SPACING,
     emit({"phase": "scaleout_generation", "ranks": 4, "backend": "gloo",
           "card": smi, "launch_s": t_ranks,
           "rank_work_s": [r["work_s"] for r in ranks],
+          "launch_stages_s": ranks.stages,
           "x_rows": [r["x_rows"] for r in ranks],
           "seconds": first["generate_s"],
           "peak_gb_per_rank": [r["generate_gb"] for r in ranks],
@@ -3322,9 +3809,12 @@ def phase_scaleout_path(torch, seed, smi, device="cuda", spacing=SPACING,
                                           for r in ranks)}
     if on_card:
         t0 = time.perf_counter()
-        nccl = distributed.launch(_nccl_rank, 1, (cfg,), backend="nccl")[0]
+        launched = distributed.launch(_nccl_rank, 1, (cfg,),
+                                      backend="nccl")
+        nccl = launched[0]
         emit({"phase": "scaleout_nccl", "world": 1, "card": smi,
-              "seconds": time.perf_counter() - t0, **nccl})
+              "seconds": time.perf_counter() - t0,
+              "launch_stages_s": launched.stages, **nccl})
         check(nccl["mode"] == "recorded" and nccl["recordings"] >= 1,
               "scaleout: the NCCL runner did not record its segment")
         check(nccl["bitwise_equal"], "scaleout: the NCCL-recorded runner "
@@ -3342,6 +3832,7 @@ def phase_scaleout_path(torch, seed, smi, device="cuda", spacing=SPACING,
     emit({"phase": "scaleout_sampler", "dp": 3, "states": BPMF_STATES,
           "trials": bpmf_trials, "nstep_md": bpmf_nstep_md, "card": smi,
           "launch_s": t_mesh, "rank_work_s": [r["work_s"] for r in mesh_run],
+          "launch_stages_s": mesh_run.stages,
           "trials_s": [r["seconds"] for r in mesh_run],
           "one_process_trials_s": one["seconds"],
           "local_rungs": [r["local_rungs"] for r in mesh_run],
@@ -3399,6 +3890,7 @@ def main(argv=None):
     launches = {"gridgen_values": {}, "gridgen_derivs": {}}
     system, binding, _, states, launches["gridgen_values"]["main_path"] = \
         phase_main_path(torch, args.seed, *complex_)
+    main_poses = states.positions[:N_PHYSICS_POSES].cpu()
     phase_eval_check(torch, lig, system, binding, states)
     phase_step_profile(torch, system, binding, states)
     temps = torch.full((N_REPLICAS,), 300.0, device="cuda")
@@ -3441,6 +3933,10 @@ def main(argv=None):
     workdir = tempfile.mkdtemp(prefix=".chip_smoke_tiles_",
                                dir=os.path.dirname(os.path.abspath(__file__)))
     try:
+        accuracy = phase_accuracy_path(torch, smi, main_poses, lig, rec,
+                                       rec_crd, counts, origin, workdir)
+        for name in ("gridgen_values", "gridgen_derivs"):
+            launches[name]["accuracy_path"] = accuracy[name]
         tiled_launches, files, deriv_files = phase_tiled_generation(
             torch, rec, rec_crd, lig_crd, counts, origin, workdir)
         for name, n in tiled_launches.items():
@@ -3482,6 +3978,7 @@ def main(argv=None):
         for name, per_type in checks.items()] + [
         line(f"{name}_f64", checks_f64[name],
              {"float64_generation": launches_f64[name],
+              "accuracy_path": accuracy[f"{name}_f64"],
               "api_path": api_launches[f"{name}_f64"],
               "scaleout_path": scaleout[f"{name}_f64"]}, "rel_err", name)
         for name in checks_f64]})

@@ -12,5 +12,7 @@ Entry points run on the CUDA card unless the caller passes
 
 from .device import resolve_device
 from .grid import Grid, InterpolationMethod, InvPowerMode
+from .ops import GridEval, evaluate_grid, grid_energy
 
-__all__ = ["Grid", "InterpolationMethod", "InvPowerMode", "resolve_device"]
+__all__ = ["Grid", "GridEval", "InterpolationMethod", "InvPowerMode",
+           "evaluate_grid", "grid_energy", "resolve_device"]

@@ -54,6 +54,10 @@ class System:
     pairs: Optional[PairTable] = None
     constraints: Optional[ConstraintSet] = None
 
+    @property
+    def num_atoms(self) -> int:
+        return self.masses.shape[0]
+
 
 def system_from_amber(top: AmberTopology, dtype=torch.float64,
                       hydrogen_mass: Optional[float] = None,

@@ -91,6 +91,55 @@ def _check_dtype(dtype):
                          f"{dtype}")
 
 
+# Device bytes of one generate_grid call, per grid point and byte of its
+# dtype: the larger of the JAX package's factor (its full grid, the
+# 27-derivative array and one staging copy: 28 + 27 with derivatives, 2
+# for values) and the peak measured on the card over the bench box
+# (chip_smoke.py's memory_guard line: 4.0-4.3 for values with a stored
+# inverse power, 70.9-71.5 with derivatives: the raw sums, the output and
+# the chain rules' temporaries of a 2^18-point chunk), rounded up. The
+# guard refuses a request whose bytes pass the budget before anything is
+# allocated or launched.
+GUARD_FACTOR_VALUES = 5
+GUARD_FACTOR_DERIVS = 75
+
+
+def _device_memory_budget(device):
+    """Usable device memory in bytes, or None when unbounded.
+
+    The reference mitigates generation OOM proactively (skips derivatives
+    above 80% free GPU memory, CudaGridForceKernels.cpp:527-535); here the
+    same check turns a certain device OOM into an actionable error
+    pointing at the tiled path. On CUDA the budget is 0.8 of what PyTorch
+    can still use: the card's free bytes and the caching allocator's
+    reserved-but-unallocated bytes. The host is unbounded.
+    """
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    free, _ = torch.cuda.mem_get_info(device)
+    cached = (torch.cuda.memory_reserved(device)
+              - torch.cuda.memory_allocated(device))
+    return int(0.8 * (free + cached))
+
+
+def _check_grid_fits(total_points, compute_derivatives, itemsize, device):
+    budget = _device_memory_budget(device)
+    if budget is None:
+        return
+    factor = (GUARD_FACTOR_DERIVS if compute_derivatives
+              else GUARD_FACTOR_VALUES)
+    need = total_points * itemsize * factor
+    if need > budget:
+        what = " with 27 derivatives" if compute_derivatives else ""
+        raise ValueError(
+            f"grid of {total_points:,} points{what} needs ~{need/1e9:.1f} "
+            f"GB on device (>{budget/1e9:.1f} GB available); use "
+            "generate_grid_to_tiled_file + StreamedGridEvaluator for "
+            "out-of-core grids, or drop compute_derivatives "
+            "(B-spline/trilinear do not need them)")
+
+
 def receptor_atoms(grid_type, positions, charges, sigmas, epsilons,
                    lj_convention="rmin", dtype=torch.float32, device=None):
     """The kernel's atom table [A, 4]: rows (x, y, z, K), K the per-atom
@@ -130,10 +179,17 @@ def generate_grid(counts,
     (the CUDA card by default) in ``dtype``. With ``compute_derivatives``
     the grid carries ``derivs`` [nx, ny, nz, 27] in cell-fractional units
     and ``vals`` is their slot 0.
+
+    A grid that cannot fit in the device's memory is refused with a
+    ``ValueError`` before anything is allocated or launched; such grids
+    go through :func:`generate_grid_to_tiled_file` and
+    ``io.streaming.StreamedGridEvaluator``.
     """
     _check_dtype(dtype)
     device = resolve_device(device)
     counts = tuple(int(c) for c in counts)
+    _check_grid_fits(int(np.prod(counts)), compute_derivatives,
+                     torch.empty((), dtype=dtype).element_size(), device)
     # the per-atom strength K carries the LJ convention, so one atom table
     # serves both conventions on either route
     atoms = receptor_atoms(grid_type, receptor_positions, charges, sigmas,

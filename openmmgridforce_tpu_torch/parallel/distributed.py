@@ -90,41 +90,96 @@ global_replica_mesh = replica_mesh
 # The local launcher
 # ----------------------------------------------------------------------
 
-def _rank_main(fn, rank, world_size, init_method, backend, device, args,
+# seconds the parent waits, after the last rank's result, for every rank
+# to tear its group down and exit
+STOP_TIMEOUT = 60.0
+
+
+class Launched(list):
+    """The ranks' results in rank order, with ``stages``: for each rank the
+    seconds of its launch by stage (``launch``'s docstring)."""
+
+    stages: list
+
+
+def _rank_main(work, rank, world_size, init_method, backend, device,
                results):
-    # the result (or the traceback) is posted before the group is torn
-    # down, which may wait for peers that a failure left behind
+    # stage stamps on the monotonic clock, which every process of a Linux
+    # host shares. The result (or the traceback) is posted before the
+    # group is torn down, which may wait for peers that a failure left
+    # behind; the stamps follow once the group is gone.
+    stamps = {"started": time.monotonic()}
     try:
+        with open(work, "rb") as f:
+            fn, args = pickle.load(f)
         if torch.device(device).type == "cpu":
             torch.set_num_threads(max(1, (os.cpu_count() or 1)
                                       // world_size))
         dev = initialize(init_method, world_size, rank, backend, device)
+        stamps["initialized"] = time.monotonic()
         out = fn(dev, *args)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
-        host = _map_tree(lambda x: x.detach().cpu()
-                         if isinstance(x, torch.Tensor) else x, out)
-        results.put((rank, True, pickle.dumps(host)))
+        stamps["worked"] = time.monotonic()
+        payload = pickle.dumps(_map_tree(
+            lambda x: x.detach().cpu() if isinstance(x, torch.Tensor)
+            else x, out))
+        stamps["result_bytes"] = len(payload)
+        results.put(("result", rank, True, payload))
+        stamps["posted"] = time.monotonic()
     except BaseException:
-        results.put((rank, False, traceback.format_exc()))
+        results.put(("result", rank, False, traceback.format_exc()))
         raise
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
+        stamps["destroyed"] = time.monotonic()
+        results.put(("stopped", rank, stamps))
+
+
+def _stage_seconds(t0, stamps, exited):
+    """A rank's launch by stage, in seconds: spawn (process start and the
+    imports of ``fn``'s module), initialize, work (``fn`` and a device
+    sync), post (pickling the result and the pipe), destroy (the process
+    group torn down), exit (the process ended, as the parent saw it)."""
+    order = (("spawn", "started"), ("initialize", "initialized"),
+             ("work", "worked"), ("post", "posted"),
+             ("destroy", "destroyed"), ("exit", "exited"))
+    stamps = dict(stamps, exited=exited)
+    out, last = {}, t0
+    for name, key in order:
+        if stamps.get(key) is None:
+            break
+        out[name] = stamps[key] - last
+        last = stamps[key]
+    out["total"] = last - t0
+    if "result_bytes" in stamps:
+        out["result_bytes"] = stamps["result_bytes"]
+    return out
 
 
 def launch(fn, world_size: int, args=(), *, backend: str | None = None,
-           device=None, timeout: float = 1800.0) -> list:
+           device=None, timeout: float = 1800.0) -> Launched:
     """Run ``fn(device, *args)`` on ``world_size`` ranks started on this
-    machine; returns the ranks' results in rank order (tensors on the host).
+    machine; returns the ranks' results in rank order (tensors on the
+    host), as a list whose ``stages`` holds each rank's seconds by stage
+    (spawn, initialize, work, post, destroy, exit, total; and the
+    result's pickled bytes).
 
     Each rank is a process started by ``spawn``: ``fn`` and ``args`` are
     pickled, so ``fn`` is a module-level function whose module the ranks
-    can import. The ranks meet through a file in a temporary directory.
+    can import. They go to the ranks through a file in a temporary
+    directory, not through the spawn pipe: a start blocks until its child
+    has read what the pipe holds past its buffer, which the child does
+    only after its imports, so large arguments would start the ranks one
+    after another. The ranks meet through a file in the same directory.
     ``device`` None puts rank r on CUDA card r % device_count (NCCL), or
     all ranks on one card with ``backend="gloo"``; ``device="cpu"`` runs
     them on the host (gloo). A rank that raises or dies fails the launch
-    with its traceback, after the other ranks are stopped.
+    with its traceback, after the other ranks are stopped; so does a rank
+    that exits with a non-zero code after posting its result, or is still
+    running ``STOP_TIMEOUT`` seconds after the last result, with its
+    stages in the message.
     """
     if device is None:
         resolve_device(None)            # raises without a card
@@ -141,44 +196,80 @@ def launch(fn, world_size: int, args=(), *, backend: str | None = None,
     results = ctx.SimpleQueue()
     rendezvous = tempfile.mkdtemp(prefix="omgf_rendezvous_")
     init_method = f"file://{os.path.join(rendezvous, 'store')}"
+    work = os.path.join(rendezvous, "work.pkl")
     procs = [ctx.Process(target=_rank_main,
-                         args=(fn, r, world_size, init_method, backend,
-                               devices[r], tuple(args), results),
+                         args=(work, r, world_size, init_method, backend,
+                               devices[r], results),
                          daemon=True) for r in range(world_size)]
-    out, failures = {}, {}
+    out, failures, stamps, exited = {}, {}, {}, {}
+
+    def receive():
+        msg = results.get()
+        if msg[0] == "stopped":
+            stamps[msg[1]] = msg[2]
+        elif msg[2]:
+            out[msg[1]] = pickle.loads(msg[3])
+        else:
+            failures[msg[1]] = msg[3]
+
+    def stages(r):
+        return _stage_seconds(t0, stamps.get(r, {}), exited.get(r))
+
+    t0 = time.monotonic()
     try:
+        with open(work, "wb") as f:
+            pickle.dump((fn, tuple(args)), f)
         for p in procs:
             p.start()
-        deadline = time.monotonic() + timeout
-        while len(out) + len(failures) < world_size:
+        deadline = t0 + timeout
+        while len(out) < world_size and not failures:
             if not results.empty():
-                rank, ok, payload = results.get()
-                if ok:
-                    out[rank] = pickle.loads(payload)
-                else:
-                    failures[rank] = payload
-                    break
+                receive()
                 continue
             dead = [r for r, p in enumerate(procs)
-                    if p.exitcode not in (None, 0)
-                    and r not in out and r not in failures]
-            if dead and results.empty():
+                    if p.exitcode not in (None, 0) and r not in out]
+            if dead:
                 time.sleep(0.5)            # a last message may be in flight
-                if results.empty():
-                    for r in dead:
+                while not results.empty():
+                    receive()
+                for r in dead:
+                    if r not in out and r not in failures:
                         failures[r] = (f"rank {r} exited with code "
                                        f"{procs[r].exitcode} and no result")
-                    break
+                continue
             if time.monotonic() > deadline:
                 failures[-1] = f"the launch took more than {timeout} s"
                 break
             time.sleep(0.01)
+        # every rank posted: each must now stop, and stop cleanly
+        stop_by = time.monotonic() + STOP_TIMEOUT
+        while not failures and len(exited) < world_size:
+            while not results.empty():
+                receive()
+            for r, p in enumerate(procs):
+                if r not in exited and p.exitcode is not None:
+                    exited[r] = time.monotonic()
+            if time.monotonic() > stop_by:
+                break
+            time.sleep(0.01)
+        while not results.empty():
+            receive()
+        if not failures:
+            for r, p in enumerate(procs):
+                if r not in exited:
+                    failures[r] = (f"rank {r} is still running "
+                                   f"{STOP_TIMEOUT} s after the last "
+                                   f"result; stages {stages(r)}")
+                elif p.exitcode != 0:
+                    failures[r] = (f"rank {r} exited with code "
+                                   f"{p.exitcode} after posting its "
+                                   f"result; stages {stages(r)}")
     finally:
-        procs = [p for p in procs if p.pid is not None]   # started
-        for p in procs:
-            if p.is_alive() and failures:
+        started = [p for p in procs if p.pid is not None]
+        for p in started:
+            if p.is_alive():
                 p.terminate()
-        for p in procs:
+        for p in started:
             p.join(30)
             if p.is_alive():
                 p.kill()
@@ -187,7 +278,9 @@ def launch(fn, world_size: int, args=(), *, backend: str | None = None,
     if failures:
         raise RuntimeError("a rank failed:\n" + "\n".join(
             f"--- rank {r} ---\n{msg}" for r, msg in sorted(failures.items())))
-    return [out[r] for r in range(world_size)]
+    launched = Launched(out[r] for r in range(world_size))
+    launched.stages = [stages(r) for r in range(world_size)]
+    return launched
 
 
 # ----------------------------------------------------------------------

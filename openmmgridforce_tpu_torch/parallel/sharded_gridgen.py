@@ -101,7 +101,8 @@ def generate_grid_sharded(mesh: Mesh,
 
     The arguments are ``ops/gridgen.generate_grid``'s; ``device`` defaults
     to the mesh's. Semantics (clamps, tanh cap, inverse-power storage
-    transform, cell-fractional derivative scaling) are generate_grid's.
+    transform, cell-fractional derivative scaling) are generate_grid's,
+    and so is its memory guard, on this rank's slab and device.
     """
     _gg._check_dtype(dtype)
     device = resolve_device(device if device is not None else mesh.device)
@@ -109,6 +110,8 @@ def generate_grid_sharded(mesh: Mesh,
     nx, ny, nz = counts
     x0, x1 = slab_rows(nx, mesh.size(axis), mesh.index(axis))
     shape = (x1 - x0, ny, nz)
+    _gg._check_grid_fits(shape[0] * ny * nz, compute_derivatives,
+                         torch.empty((), dtype=dtype).element_size(), device)
     derivs = None
     if x1 == x0:
         vals = torch.empty(shape, dtype=dtype, device=device)

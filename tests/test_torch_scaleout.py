@@ -12,6 +12,8 @@ run the worker functions below, so this module imports no JAX at its top:
 a spawned rank imports it and must not load JAX.
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -118,6 +120,29 @@ def failing_worker(device):
     if dist.get_rank() == 1:
         raise ValueError("rank one fails on purpose")
     dist.barrier()
+
+
+def exit_after_posting_worker(device, code):
+    """Posts its result, then (rank 1 alone) exits with ``code`` as the
+    interpreter shuts down, after the group is torn down."""
+    import atexit
+    import os
+    import torch.distributed as dist
+
+    if dist.get_rank() == 1:
+        atexit.register(os._exit, code)
+    dist.barrier()
+    return dist.get_rank()
+
+
+def hang_after_posting_worker(device):
+    """Posts its result, then (rank 0 alone) never exits."""
+    import atexit
+    import torch.distributed as dist
+
+    if dist.get_rank() == 0:
+        atexit.register(time.sleep, 3600)
+    return dist.get_rank()
 
 
 def _sampler_complex(device):
@@ -425,3 +450,32 @@ def test_top_k_poses_matches_jax(screen_case, screen_ranks):
 def test_launch_fails_with_the_rank_traceback():
     with pytest.raises(RuntimeError, match="rank one fails on purpose"):
         distributed.launch(failing_worker, 3, device="cpu", timeout=120)
+
+
+def test_launch_fails_when_a_rank_exits_non_zero_after_posting():
+    """A rank whose exit fails after its result is posted fails the
+    launch, with its stages in the message; a clean launch returns each
+    rank's stages."""
+    with pytest.raises(RuntimeError, match=r"rank 1 exited with code 3 "
+                       r"after posting its result; stages \{'spawn'"):
+        distributed.launch(exit_after_posting_worker, 2, (3,),
+                           device="cpu", timeout=120)
+    ok = distributed.launch(exit_after_posting_worker, 2, (0,),
+                            device="cpu", timeout=120)
+    assert list(ok) == [0, 1]
+    for st in ok.stages:
+        assert list(st) == ["spawn", "initialize", "work", "post",
+                            "destroy", "exit", "total", "result_bytes"]
+        assert st["total"] == pytest.approx(sum(
+            st[k] for k in ("spawn", "initialize", "work", "post",
+                            "destroy", "exit")))
+
+
+def test_launch_fails_when_a_rank_does_not_stop(monkeypatch):
+    monkeypatch.setattr(distributed, "STOP_TIMEOUT", 3.0)
+    t0 = time.monotonic()
+    with pytest.raises(RuntimeError, match="rank 0 is still running 3.0 s "
+                       "after the last result; stages"):
+        distributed.launch(hang_after_posting_worker, 2, device="cpu",
+                           timeout=120)
+    assert time.monotonic() - t0 < 60
