@@ -39,7 +39,12 @@ kernels are built from the checkout and held against their plain PyTorch
 twins first: on ragged shapes down to one point and one atom, then at the
 paths' full shapes, where each is timed beside its bound, its launch shape
 and the instruction counts of its atom loop; float64 K1's reciprocals and
-single pairs are held to their ulps against correctly rounded values. Every MD segment runs as
+single pairs are held to their ulps against correctly rounded values.
+K3, the hand-written kernel that evaluates a fused pack on every MD step
+of every path (packed_eval_check), is held against its plain twin on
+small packs of every degree, basis and dtype, whole and in the slab
+windows of a sharded table, and on main_path's and deriv_path's packs,
+where it is timed beside its twin, eager and as a CUDA graph. Every MD segment runs as
 replays of CUDA graphs of blocks of steps; each path also times (and
 profiles) the same segment as eager launches, and segment_graph_check
 holds the two trajectories against each other under the same explicit
@@ -792,6 +797,339 @@ def phase_ragged(torch):
     check(not misses, f"ragged shapes: {misses}")
 
 
+# ----------------------------------------------------------------------
+# K3: the fused evaluation of a pack (evaluate_multi's kernel)
+# ----------------------------------------------------------------------
+
+# K3 against its plain twin on the card: max |dE| / max |E| and
+# max |dF| / max |F| (the two sum in different orders; float64 rounds to
+# about 1e-16 of the terms)
+PACKED_EVAL_GATE = {"float32": 2e-5, "float64": 1e-12}
+PACKED_EVAL_DEGREES = (2, 4, 6)
+PACKED_EVAL_BASES = ("monomial", "chebyshev")
+# the ragged packs: 6 x 5 x 4 cells, 23 atoms, 4 replicas, slab windows of
+# 3 ranks (2 x-cells each)
+PACKED_EVAL_COUNTS = (7, 6, 5)
+PACKED_EVAL_SPACING = (0.1, 0.12, 0.09)
+PACKED_EVAL_ORIGIN = (-0.3, 0.1, 0.2)
+PACKED_EVAL_ATOMS = 23
+PACKED_EVAL_REPLICAS = 4
+PACKED_EVAL_SP = 3
+PACKED_EVAL_OOB_K = 500.0
+PACKED_EVAL_REPS = 50        # timed calls a figure
+
+
+def random_pack(seed, degree, poly_basis, n_grids, dtype, device="cpu",
+                scale=1.0):
+    """A fused pack (MultiPackedGrid) of seeded random cell coefficients
+    on PACKED_EVAL_COUNTS: the middle grid with back power 3, the others
+    none."""
+    import torch
+    from openmmgridforce_tpu_torch.ops.packed import MultiPackedGrid
+
+    rng = np.random.default_rng([seed, degree, n_grids])
+    ncells = int(np.prod(np.asarray(PACKED_EVAL_COUNTS) - 1))
+    coeffs = scale * rng.standard_normal((ncells, n_grids * degree ** 3))
+    return MultiPackedGrid(
+        coeffs=torch.as_tensor(coeffs, dtype=dtype, device=device),
+        spacing=torch.tensor(PACKED_EVAL_SPACING, dtype=dtype,
+                             device=device),
+        origin=torch.tensor(PACKED_EVAL_ORIGIN, dtype=dtype, device=device),
+        counts=PACKED_EVAL_COUNTS, degree=degree, n_grids=n_grids,
+        back_powers=tuple(3.0 if g == n_grids // 2 else 0.0
+                          for g in range(n_grids)),
+        oob_k=PACKED_EVAL_OOB_K, poly_basis=poly_basis)
+
+
+def packed_eval_positions(seed, lead=(), n_atoms=PACKED_EVAL_ATOMS):
+    """Atoms [*lead, n_atoms, 3] (float64) in and around the ragged packs'
+    box, some outside on every side: atom 0 on the box's low corner, atom
+    1 on its high corner, atom 2 on interior cell faces of every axis."""
+    rng = np.random.default_rng([seed, *lead])
+    spacing = np.asarray(PACKED_EVAL_SPACING)
+    counts = np.asarray(PACKED_EVAL_COUNTS)
+    lo = np.asarray(PACKED_EVAL_ORIGIN)
+    hi = lo + spacing * (counts - 1)
+    x = rng.uniform(lo - 0.15, hi + 0.15, tuple(lead) + (n_atoms, 3))
+    x[..., 0, :] = lo
+    x[..., 1, :] = hi
+    x[..., 2, :] = lo + spacing * (counts // 2)
+    return x
+
+
+def packed_eval_scaling(seed, n_grids, n_atoms=PACKED_EVAL_ATOMS):
+    """Per-grid per-atom scalings [G, N] with zeros: every grid's for
+    atoms 3, 8, ..., and grid 0's for atom 4."""
+    s = np.random.default_rng([seed, n_grids]).uniform(
+        -1.0, 1.0, (n_grids, n_atoms))
+    s[:, 3::5] = 0.0
+    s[0, 4] = 0.0
+    return s
+
+
+def slab_table(table, x_lo, x_count):
+    """The rows of the cells [x_lo, x_lo + x_count) along x of a pack, as
+    a rank of a table split over x-cells holds them (zero rows past the
+    last cell)."""
+    import torch
+
+    _, ncy, ncz = table.cell_counts
+    plane = ncy * ncz
+    rows = torch.zeros((x_count * plane, table.coeffs.shape[1]),
+                       dtype=table.coeffs.dtype, device=table.coeffs.device)
+    held = table.coeffs[x_lo * plane:(x_lo + x_count) * plane]
+    rows[:held.shape[0]] = held
+    return dataclasses.replace(table, coeffs=rows)
+
+
+def packed_eval_errors(got, ref):
+    """max |dE| / max |E|, max |dF| / max |F| and the largest absolute
+    difference of (energies, forces) pairs."""
+    (e, f), (e0, f0) = got, ref
+    de, df = float((e - e0).abs().max()), float((f - f0).abs().max())
+    return {"E_rel": de / max(float(e0.abs().max()), 1e-300),
+            "F_rel": df / max(float(f0.abs().max()), 1e-300),
+            "max_abs_err": max(de, df)}
+
+
+def _dtype_name(dtype):
+    return str(dtype).rsplit(".", 1)[-1]
+
+
+def _packed_eval_registers():
+    """Registers a thread of each K3 instantiation from the build log:
+    {"d4 chebyshev float32": n, ...}."""
+    from openmmgridforce_tpu_torch import cuda_build
+
+    out = {}
+    for entry, n in cuda_build.kernel_registers("packed_eval").items():
+        key = re.search(r"kernelILi(\d)ELb(\d)E([fd])E", entry)
+        if key:
+            d, cheb, real = key.groups()
+            out[f"d{d} {'chebyshev' if cheb == '1' else 'monomial'} "
+                f"{'float64' if real == 'd' else 'float32'}"] = n
+    return out
+
+
+def phase_packed_eval_ragged(torch, device="cuda"):
+    """K3 against its plain twin on the card on small ragged packs: d = 2,
+    4, 6 x monomial, Chebyshev x float32, float64 x G = 1, 3 x leading
+    dims [] and [R], with atoms inside, on the box's faces and outside,
+    zero scalings and a back power; each case whole and in the slab
+    windows of PACKED_EVAL_SP ranks (restraint on the first only), whose
+    sum must equal the whole evaluation bit for bit. One line per dtype,
+    degree and basis with max |dE| / max |E| and max |dF| / max |F| of
+    each case. ``device="cpu"`` rehearses the phase on the host, where
+    both sides are the twin."""
+    from openmmgridforce_tpu_torch.ops.cuda_packed_eval import (
+        packed_eval, packed_eval_plain)
+
+    ncx = PACKED_EVAL_COUNTS[0] - 1
+    slab = -(-ncx // PACKED_EVAL_SP)
+    windows = [(0, ncx, True)] + [(r * slab, slab, r == 0)
+                                  for r in range(PACKED_EVAL_SP)]
+    worst = {"float32": [0.0, 0.0], "float64": [0.0, 0.0]}
+    misses, n_cases = [], 0
+    for dtype in (torch.float32, torch.float64):
+        name = _dtype_name(dtype)
+        gate = PACKED_EVAL_GATE[name]
+        for d in PACKED_EVAL_DEGREES:
+            for basis in PACKED_EVAL_BASES:
+                cases = {}
+                for n_grids in (1, 3):
+                    table = random_pack(11, d, basis, n_grids, dtype,
+                                        device)
+                    s = torch.as_tensor(packed_eval_scaling(17, n_grids),
+                                        dtype=dtype, device=device)
+                    for lead in ((), (PACKED_EVAL_REPLICAS,)):
+                        x = torch.as_tensor(packed_eval_positions(13, lead),
+                                            dtype=dtype, device=device)
+                        parts = []
+                        for w, (x_lo, x_count, restrain) in enumerate(
+                                windows):
+                            t = (table if w == 0
+                                 else slab_table(table, x_lo, x_count))
+                            args = (t, x, s, x_lo, x_count, restrain)
+                            got = packed_eval(*args)
+                            ref = packed_eval_plain(*args)
+                            err = packed_eval_errors(got, ref)
+                            key = (f"G{n_grids} lead{list(lead)} "
+                                   + ("whole" if w == 0 else
+                                      f"rank{w - 1}of{PACKED_EVAL_SP}"))
+                            cases[key] = [err["E_rel"], err["F_rel"]]
+                            ok = (got[0].shape == x.shape[:-1]
+                                  and got[1].shape == x.shape
+                                  and bool(torch.isfinite(got[1]).all()))
+                            if not ok or not (err["E_rel"] <= gate
+                                              and err["F_rel"] <= gate):
+                                misses.append(f"{name} d{d} {basis} {key}:"
+                                              f" {err}")
+                            worst[name][0] = max(worst[name][0],
+                                                 err["E_rel"])
+                            worst[name][1] = max(worst[name][1],
+                                                 err["F_rel"])
+                            if w == 0:
+                                whole = got
+                            else:
+                                parts.append(got)
+                            n_cases += 1
+                        # ranks other than the owner add exact zeros
+                        summed = [sum(p[i] for p in parts) for i in (0, 1)]
+                        if not (torch.equal(summed[0], whole[0])
+                                and torch.equal(summed[1], whole[1])):
+                            misses.append(f"{name} d{d} {basis} G{n_grids} "
+                                          f"lead{list(lead)}: the slab sum "
+                                          "differs from the whole")
+                _sync(torch, device)
+                emit({"phase": "packed_eval_check", "packs": "ragged",
+                      "dtype": name, "degree": d, "poly_basis": basis,
+                      "counts": PACKED_EVAL_COUNTS,
+                      "atoms": PACKED_EVAL_ATOMS, "gate": gate,
+                      "E_rel_F_rel": cases})
+    emit({"phase": "packed_eval_check", "packs": "ragged",
+          "cases": n_cases, "worst_E_rel_F_rel": worst,
+          "registers": _packed_eval_registers(), "misses": misses})
+    check(not misses, f"packed_eval on ragged packs: {misses}")
+
+
+def _graph_ms(torch, fn, reps):
+    """ms per replay of ``fn`` recorded as one CUDA graph (after an eager
+    call), replays back to back between CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    ms = _cuda_ms(torch, graph.replay, reps)
+    del graph
+    return ms
+
+
+def packed_eval_bound(torch, table, positions, scaling):
+    """The least device time of one evaluation: the bytes it must move
+    (the distinct rows its atoms inside the box read, positions and
+    scalings in, energies and forces out) over H100_BYTES_PER_S, against
+    its FLOPs (per atom inside, per grid: 2 FMAs a coefficient for the z
+    sums, 4 a run of d for the x-y sums, 20 for the tail; 3 a run once for
+    the x-y weights) over the dtype's peak. Also the bytes with one row
+    gathered per atom, as the kernel reads them."""
+    from openmmgridforce_tpu_torch.ops.interpolate import cell_index, locate
+
+    _, _, inside, ixyz, _ = locate(positions, table.spacing, table.origin,
+                                   table.counts)
+    cells = cell_index(ixyz, table.counts)[inside]
+    item = table.coeffs.element_size()
+    d, G = table.degree, table.n_grids
+    row = G * d ** 3 * item
+    rest = (positions.numel() * 2 + scaling.numel()
+            + positions.numel() // 3) * item
+    n_in = int(cells.numel())
+    distinct = int(torch.unique(cells).numel())
+    flops = n_in * (G * (4 * d ** 3 + 8 * d ** 2 + 20) + 3 * d ** 2)
+    peak = (H100_FP64_FLOPS if table.coeffs.dtype == torch.float64
+            else H100_FP32_FLOPS)
+    bounds = {"bytes": (distinct * row + rest) / H100_BYTES_PER_S,
+              "operations": flops / peak}
+    bound_by = max(bounds, key=bounds.get)
+    return {"atoms_inside": n_in, "distinct_rows": distinct,
+            "row_bytes": row, "bytes": distinct * row + rest,
+            "gathered_bytes": n_in * row + rest, "flops": flops,
+            "bound_ms": 1e3 * bounds[bound_by], "bound_by": bound_by,
+            "gather_bound_ms": 1e3 * (n_in * row + rest) / H100_BYTES_PER_S}
+
+
+def phase_packed_eval_check(torch, path, table, scaling, positions):
+    """K3 against its plain twin on a path's fused pack at its final
+    poses [R, N, 3] (replica 0's first atoms moved onto the box's low and
+    high corners and replica 1's outside), in float32 and with the same
+    table in float64; the kernel's and the twin's ms per call, eager and
+    recorded as a CUDA graph, beside the bound. Returns the kernels-line
+    figures."""
+    from openmmgridforce_tpu_torch.ops.cuda_packed_eval import (
+        packed_eval, packed_eval_plain)
+
+    x = positions.clone()
+    lo = table.origin
+    hi = table.origin + table.spacing * torch.tensor(
+        [c - 1 for c in table.counts], dtype=lo.dtype, device=lo.device)
+    x[0, 0], x[0, 1] = lo, hi
+    x[1, :5] = hi + 0.05
+    errors = {}
+    for dtype in (torch.float32, torch.float64):
+        t = dataclasses.replace(table, coeffs=table.coeffs.to(dtype),
+                                spacing=table.spacing.to(dtype),
+                                origin=table.origin.to(dtype))
+        args = (t, x.to(dtype), scaling.to(dtype))
+        got, ref = packed_eval(*args), packed_eval_plain(*args)
+        torch.cuda.synchronize()
+        errors[_dtype_name(dtype)] = packed_eval_errors(got, ref)
+        del t, args, got, ref
+    args = (table, x, scaling)
+    times = {
+        "ms": _cuda_ms(torch, lambda: packed_eval(*args), PACKED_EVAL_REPS),
+        "plain_ms": _cuda_ms(torch, lambda: packed_eval_plain(*args),
+                             PACKED_EVAL_REPS),
+        "graph_ms": _graph_ms(torch, lambda: packed_eval(*args),
+                              PACKED_EVAL_REPS),
+        "plain_graph_ms": _graph_ms(torch, lambda: packed_eval_plain(*args),
+                                    PACKED_EVAL_REPS)}
+    bound = packed_eval_bound(torch, table, x, scaling)
+    emit({"phase": "packed_eval_check", "packs": path,
+          "table_shape": list(table.coeffs.shape), "degree": table.degree,
+          "poly_basis": table.poly_basis, "poses": list(x.shape[:2]),
+          "errors": errors, "gate": PACKED_EVAL_GATE, **times, **bound,
+          "bound_share": bound["bound_ms"] / times["graph_ms"],
+          "gather_bound_share": bound["gather_bound_ms"] / times["graph_ms"],
+          "eager_bound_share": bound["bound_ms"] / times["ms"]})
+    for name, err in errors.items():
+        gate = PACKED_EVAL_GATE[name]
+        check(err["E_rel"] <= gate and err["F_rel"] <= gate,
+              f"packed_eval on {path}'s pack, {name}: {err}")
+    # the kernels line takes the recorded times: back to back, an eager
+    # call's host work (the wrapper, ctypes) outlasts the kernel
+    return {"max_abs_err": errors["float32"]["max_abs_err"],
+            "rel_err": max(errors["float32"]["E_rel"],
+                           errors["float32"]["F_rel"]),
+            "rel_err_f64": max(errors["float64"]["E_rel"],
+                               errors["float64"]["F_rel"]),
+            "ms": times["graph_ms"], "plain_ms": times["plain_graph_ms"],
+            "bound_ms": bound["bound_ms"], "bound_pipe": bound["bound_by"]}
+
+
+def phase_path_packed_eval(torch, path, table, positions, scaling):
+    """K3 against its plain twin once on a path's own pack at its final
+    states, gated at PACKED_EVAL_GATE (these launches are not the
+    path's). Returns the errors."""
+    from openmmgridforce_tpu_torch.ops.cuda_packed_eval import (
+        packed_eval, packed_eval_plain)
+
+    got = packed_eval(table, positions, scaling)
+    ref = packed_eval_plain(table, positions, scaling)
+    err = packed_eval_errors(got, ref)
+    name = _dtype_name(table.coeffs.dtype)
+    gate = PACKED_EVAL_GATE[name]
+    finite = bool(torch.isfinite(got[0]).all()
+                  and torch.isfinite(got[1]).all())
+    emit({"phase": "packed_eval_check", "packs": path,
+          "table_shape": list(table.coeffs.shape), "degree": table.degree,
+          "poly_basis": table.poly_basis, "poses": list(positions.shape),
+          "atoms_inside": _atoms_inside(torch, table, positions),
+          "errors": {name: err}, "gate": gate, "finite": finite})
+    check(finite and got[1].shape == positions.shape
+          and err["E_rel"] <= gate and err["F_rel"] <= gate,
+          f"packed_eval on {path}'s pack, {name}: {err}")
+    return err
+
+
+def _atoms_inside(torch, table, positions):
+    """How many atoms of ``positions`` [..., 3] lie in a pack's box."""
+    hi = table.origin + table.spacing * torch.tensor(
+        [c - 1 for c in table.counts], dtype=table.origin.dtype,
+        device=table.origin.device)
+    return int(((positions >= table.origin) & (positions <= hi))
+               .all(-1).sum())
+
+
 def phase_kernel_check(torch, rec, rec_crd, counts, origin, sm_count):
     """The kernel against its plain twin at the main path's shapes."""
     from openmmgridforce_tpu_torch.ops import cuda_gridgen
@@ -958,6 +1296,13 @@ def _reset_launches():
     return gridgen_values, gridgen_derivs
 
 
+def _packed_eval():
+    """K3's wrapper, whose ``launches`` a path reads."""
+    from openmmgridforce_tpu_torch.ops.cuda_packed_eval import packed_eval
+
+    return packed_eval
+
+
 def _run_path(torch, phase, seed, lig, lig_crd, rec, rec_crd, counts,
               origin, n_replicas, n_steps, device, derivatives):
     """One path of the port from the synthetic complex to final replica
@@ -965,7 +1310,7 @@ def _run_path(torch, phase, seed, lig, lig_crd, rec, rec_crd, counts,
     grids with 27 derivatives, triquintic Chebyshev packs, and the
     Hermite-row packs of the same grids beside them. Returns (system,
     binding, Hermite-row binding or None, states, launches of the path's
-    kernel)."""
+    kernel, of packed_eval)."""
     from openmmgridforce_tpu_torch.grid import InterpolationMethod
     from openmmgridforce_tpu_torch.mm import (GridBinding, graphs,
                                               make_md_runner,
@@ -981,6 +1326,8 @@ def _run_path(torch, phase, seed, lig, lig_crd, rec, rec_crd, counts,
     method = (InterpolationMethod.TRIQUINTIC if derivatives
               else InterpolationMethod.BSPLINE)
     values_kernel, derivs_kernel = _reset_launches()
+    evaluation = _packed_eval()
+    evaluation.launches = 0
     _sync(torch, device)
     t0 = time.perf_counter()
     grids = [gridgen.generate_grid(
@@ -1030,7 +1377,8 @@ def _run_path(torch, phase, seed, lig, lig_crd, rec, rec_crd, counts,
     _sync(torch, device)
     t_seg = time.perf_counter() - t0
     launches = {"gridgen_values": values_kernel.launches,
-                "gridgen_derivs": derivs_kernel.launches}
+                "gridgen_derivs": derivs_kernel.launches,
+                "packed_eval": evaluation.launches}
     # the same segment as eager launches, over a window from the final
     # states (the window's states are dropped)
     window = make_md_runner(EAGER_STEPS, dt=0.001, friction=5.0,
@@ -1065,6 +1413,8 @@ def _run_path(torch, phase, seed, lig, lig_crd, rec, rec_crd, counts,
     if torch.device(device).type == "cuda":
         check(launches[kernel] >= 3,
               f"{kernel} kernel launched {launches[kernel]} times")
+        check(launches["packed_eval"] > 0, f"{phase}: the packed_eval "
+              "kernel was not launched")
     for key in ("finite_grids", "finite_table"):
         check(extra.get(key, True), f"{phase}: {key} is false")
     check(finite, "non-finite positions or velocities")
@@ -1072,7 +1422,8 @@ def _run_path(torch, phase, seed, lig, lig_crd, rec, rec_crd, counts,
           f"median replica temperature {float(t_rep.median())} K")
     check(float(t_rep.max()) < 20000.0,
           f"a replica reached {float(t_rep.max())} K")
-    return system, binding, hermite, states, launches[kernel]
+    return (system, binding, hermite, states, launches[kernel],
+            launches["packed_eval"])
 
 
 def phase_main_path(torch, seed, lig, lig_crd, rec, rec_crd, counts,
@@ -1240,6 +1591,31 @@ def phase_step_profile(torch, system, binding, states, n_steps=20,
     emit({"phase": phase, "steps": n_steps, "graph": graph, "eager": eager})
 
 
+def phase_step_profile_plain(torch, system, binding, states, phase):
+    """phase_step_profile in the same run with evaluate_multi sent to K3's
+    plain twin (the ATen chain that evaluated the packs on the card
+    before K3), on a copy of the binding so that it records segments of
+    its own, which are dropped after."""
+    import unittest.mock
+
+    from openmmgridforce_tpu_torch.mm import system as mm_system
+    from openmmgridforce_tpu_torch.ops import packed
+    from openmmgridforce_tpu_torch.ops.cuda_packed_eval import (
+        packed_eval, packed_eval_plain)
+
+    twin = dataclasses.replace(binding,
+                               grid=dataclasses.replace(binding.grid))
+    recorded = set(mm_system._SEGMENTS)
+    launches = packed_eval.launches
+    with unittest.mock.patch.object(packed, "packed_eval",
+                                    packed_eval_plain):
+        phase_step_profile(torch, system, twin, states, phase=phase)
+    for key in set(mm_system._SEGMENTS) - recorded:
+        del mm_system._SEGMENTS[key]
+    check(packed_eval.launches == launches, f"{phase}: K3 was launched "
+          "with evaluate_multi sent to its twin")
+
+
 def _max_delta(torch, a, b):
     return (float((a.positions - b.positions).abs().max()),
             float((a.velocities - b.velocities).abs().max()))
@@ -1309,8 +1685,8 @@ def phase_bpmf_path(torch, seed, lig, lig_crd, rec, rec_crd, counts,
     slab, an HBonds-constrained system with hydrogen mass 4, a geometric
     300-600 K ladder at dt 2 fs; equilibration in drain rounds, then
     trials of exchange sweeps, genetic-MC sweeps and MD segments, the last
-    one timed beside its MD's device time. Returns the values kernel's
-    launches on this path."""
+    one timed beside its MD's device time. Returns the launches of the
+    values kernel and of packed_eval on this path."""
     from openmmgridforce_tpu_torch.grid import InterpolationMethod
     from openmmgridforce_tpu_torch.mm import GridBinding, system_from_amber
     from openmmgridforce_tpu_torch.mm.constraints import (apply_rattle,
@@ -1322,6 +1698,8 @@ def phase_bpmf_path(torch, seed, lig, lig_crd, rec, rec_crd, counts,
 
     spacing = (SPACING,) * 3
     values_kernel, derivs_kernel = _reset_launches()
+    evaluation = _packed_eval()
+    evaluation.launches = 0
     apply_shake.stats.reset()
     apply_rattle.stats.reset()
     _sync(torch, device)
@@ -1390,7 +1768,10 @@ def phase_bpmf_path(torch, seed, lig, lig_crd, rec, rec_crd, counts,
                       "md_device_share_of_trial": (ms * nstep_md / 1e3
                                                    / wall_s)})
     launches = {"gridgen_values": values_kernel.launches,
-                "gridgen_derivs": derivs_kernel.launches}
+                "gridgen_derivs": derivs_kernel.launches,
+                "packed_eval": evaluation.launches}
+    phase_path_packed_eval(torch, "bpmf_path", multi,
+                           sampler.states.positions, scaling)
 
     states = sampler.states
     x = states.positions
@@ -1440,6 +1821,8 @@ def phase_bpmf_path(torch, seed, lig, lig_crd, rec, rec_crd, counts,
         check(launches["gridgen_values"] >= 3,
               f"gridgen_values launched {launches['gridgen_values']} times "
               "on bpmf_path")
+        check(launches["packed_eval"] > 0, "bpmf_path: the packed_eval "
+              "kernel was not launched")
     check(finite, "bpmf_path: non-finite positions or velocities")
     check(violation < 1e-4, f"bpmf_path: a constrained distance is "
           f"{violation} from its length")
@@ -1451,7 +1834,7 @@ def phase_bpmf_path(torch, seed, lig, lig_crd, rec, rec_crd, counts,
           f"accepted in {sampler.n_exchange_attempted}")
     if torch.device(device).type == "cuda":
         phase_bpmf_segments(torch, sampler, nstep_md)
-    return launches["gridgen_values"]
+    return launches
 
 
 def _atomic_plan(index, n_atoms, keys, coef=None, src_rows=None,
@@ -3111,7 +3494,8 @@ def phase_streamed_path(torch, seed, lig, lig_crd, files,
     steps (STREAM_STEPS by default, cut from 1,000) with the device
     memory they held, the same steps from fresh engines with groups padded
     to powers of two and at their own sizes, and one profiled short
-    segment."""
+    segment. Returns packed_eval's launches from the warm-up to the end
+    of the timed steps."""
     import contextlib
     import unittest.mock
 
@@ -3145,6 +3529,8 @@ def phase_streamed_path(torch, seed, lig, lig_crd, files,
         gen, torch.as_tensor(lig_crd, dtype=torch.float32), system.masses,
         300.0, STREAM_REPLICAS, device="cuda")
 
+    evaluation = _packed_eval()
+    evaluation.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     states = md.run(states, 300.0, STREAM_WARM)
@@ -3170,6 +3556,7 @@ def phase_streamed_path(torch, seed, lig, lig_crd, files,
     states = md.run(states, 300.0, n_steps)
     torch.cuda.synchronize()
     t_run = time.perf_counter() - t0
+    launches = evaluation.launches
     segments = md.segments - segments0
     recorded = {k: graphs.RECORDINGS[k] - recorded0[k] for k in recorded0}
     memory = {"peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
@@ -3310,12 +3697,23 @@ def phase_streamed_path(torch, seed, lig, lig_crd, files,
           "full_escalations": sset.full_escalations,
           "crossing_retries": md.crossing_retries,
           "region_misses": [ev.region_misses for ev in evs],
+          "packed_eval_launches": launches,
           "fused_pack_gb": (pack.coeffs.numel() * pack.coeffs.element_size()
                             / 1e9 if pack is not None else None),
           "host_rss_gb": _rss_gb(),
           "device_max_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
           "finite": finite, "median_T": float(t_rep.median()),
           "max_T": float(t_rep.max())})
+    # K3 on the held region pack that holds the most of the final atoms
+    held = [v[0] for v in sset._packed.values()
+            if not isinstance(v[0], tuple)]
+    check(bool(held), "streamed_path: no fused region pack is held")
+    x = states.positions
+    table = max(held, key=lambda t: _atoms_inside(torch, t, x))
+    phase_path_packed_eval(torch, "streamed_path", table, x,
+                           torch.as_tensor(sset.scal_stack,
+                                           dtype=torch.float32,
+                                           device="cuda"))
     for ev in evs:
         ev.close()
     check(finite, "streamed_path: non-finite positions or velocities")
@@ -3323,6 +3721,9 @@ def phase_streamed_path(torch, seed, lig, lig_crd, files,
           f"streamed_path: median T {float(t_rep.median())} K")
     check(float(t_rep.max()) < 20000.0,
           f"streamed_path: a replica reached {float(t_rep.max())} K")
+    check(launches > 0, "streamed_path: the packed_eval kernel was not "
+          "launched")
+    return launches
 
 
 # ----------------------------------------------------------------------
@@ -3382,6 +3783,8 @@ def _scaleout_rank(device, cfg):
                                               make_md_runner,
                                               system_from_amber)
     from openmmgridforce_tpu_torch.ops import gridgen
+    from openmmgridforce_tpu_torch.ops.cuda_packed_eval import (
+        packed_eval_plain)
     from openmmgridforce_tpu_torch.ops.packed import (evaluate_multi,
                                                       pack_grids_fused)
     from openmmgridforce_tpu_torch.parallel import (
@@ -3390,6 +3793,7 @@ def _scaleout_rank(device, cfg):
         replica_rows, shard_packed_grid, shard_replica_states)
 
     t_start = time.perf_counter()
+    _packed_eval().launches = 0
     lig, lig_crd, rec, rec_crd, counts, origin, scaling = _scaleout_setup(
         torch, cfg, device)
     on_card = device.type == "cuda"
@@ -3466,12 +3870,14 @@ def _scaleout_rank(device, cfg):
     del dpack, dwhole, dgrids, dslabs, vgrids, vslabs
 
     # 3. sharded evaluation of every replica against the unsharded pack
+    # (through K3 on the card) and against K3's plain twin on it
     R = cfg["replicas"]
     gen_cpu = np.random.default_rng(cfg["seed"] + 7)
     poses = torch.as_tensor(
         lig_crd[None] + gen_cpu.normal(0.0, 0.03, (R,) + lig_crd.shape),
         dtype=torch.float32, device=device)
     ref = evaluate_multi(whole, poses, scaling)
+    plain = packed_eval_plain(whole, poses, scaling)
     out["eval"] = {}
     for name, mesh, table in (("sp4", sp4, vpack),
                               ("sp2", dp2sp2,
@@ -3482,7 +3888,9 @@ def _scaleout_rank(device, cfg):
         for _ in range(5):
             evaluate(table, poses, scaling)
         t_eval, _ = _rank_figures(torch, device, t0)
+        twin = packed_eval_errors((got.per_atom_energy, got.forces), plain)
         out["eval"][name] = {
+            "plain_E_rel": twin["E_rel"], "plain_F_rel": twin["F_rel"],
             "max_abs_E": float(ref.energy.abs().max()),
             "E_delta": float((got.energy - ref.energy).abs().max()),
             "max_abs_F": float(ref.forces.abs().max()),
@@ -3584,6 +3992,7 @@ def _scaleout_rank(device, cfg):
             "top_E_delta": float((top_e + neg).abs().max()),
             "top_x_delta": float((top_x - full.positions[idx]).abs()
                                  .max())})
+    out["packed_eval_launches"] = _packed_eval().launches
     out["work_s"] = time.perf_counter() - t_start
     return out
 
@@ -3604,6 +4013,7 @@ def _nccl_rank(device, cfg):
                                                     shard_packed_grid)
 
     t_start = time.perf_counter()
+    _packed_eval().launches = 0
     lig, lig_crd, rec, rec_crd, counts, origin, scaling = _scaleout_setup(
         torch, cfg, device)
     mesh = Mesh((1, 1), ("dp", "sp"), device)
@@ -3635,6 +4045,7 @@ def _nccl_rank(device, cfg):
     torch.cuda.synchronize(device)
     return {"backend": dist.get_backend(), "mode": run.mode,
             "recordings": recordings, "launches": launches,
+            "packed_eval_launches": _packed_eval().launches,
             "bitwise_equal": bool(torch.equal(graph.positions,
                                               eager.positions)
                                   and torch.equal(graph.velocities,
@@ -3659,6 +4070,7 @@ def _sampler_rank(device, cfg, dp):
     from openmmgridforce_tpu_torch.sampling import Sampler, SamplerConfig
 
     t_start = time.perf_counter()
+    _packed_eval().launches = 0
     lig, lig_crd, rec, rec_crd, counts, origin, scaling = _scaleout_setup(
         torch, cfg, device, which="bpmf_complex")
     values_kernel, _ = _reset_launches()
@@ -3690,6 +4102,7 @@ def _sampler_rank(device, cfg, dp):
         torch.cuda.synchronize(device)
     seconds = time.perf_counter() - t0
     return {"launches": launches, "seconds": seconds,
+            "packed_eval_launches": _packed_eval().launches,
             "work_s": time.perf_counter() - t_start,
             "local_rungs": int(sampler.states.positions.shape[0]),
             "energies": sampler.potential_energies(),
@@ -3782,6 +4195,11 @@ def phase_scaleout_path(torch, seed, smi, device="cuda", spacing=SPACING,
             check(p["rows_equal"], f"scaleout: rank {r['rank']}'s {name} "
                   "rows differ from the one-rank pack's")
         for name, e in r["eval"].items():
+            gate = PACKED_EVAL_GATE["float32"]
+            check(e["plain_E_rel"] <= gate and e["plain_F_rel"] <= gate,
+                  f"scaleout: sharded evaluation ({name}) is "
+                  f"{e['plain_E_rel']} / {e['plain_F_rel']} of max from "
+                  "K3's plain twin on the unsharded pack")
             check(e["E_delta"] <= SCALEOUT_GATE * e["max_abs_E"]
                   and e["F_delta"] <= SCALEOUT_GATE * e["max_abs_F"],
                   f"scaleout: sharded evaluation ({name}) is "
@@ -3806,7 +4224,9 @@ def phase_scaleout_path(torch, seed, smi, device="cuda", spacing=SPACING,
                 "gridgen_values_f64": sum(r["launches_f64"]["gridgen_values"]
                                           for r in ranks),
                 "gridgen_derivs_f64": sum(r["launches_f64"]["gridgen_derivs"]
-                                          for r in ranks)}
+                                          for r in ranks),
+                "packed_eval": sum(r["packed_eval_launches"]
+                                   for r in ranks)}
     if on_card:
         t0 = time.perf_counter()
         launched = distributed.launch(_nccl_rank, 1, (cfg,),
@@ -3820,6 +4240,7 @@ def phase_scaleout_path(torch, seed, smi, device="cuda", spacing=SPACING,
         check(nccl["bitwise_equal"], "scaleout: the NCCL-recorded runner "
               f"is {nccl['max_abs_dx_nm']} nm from eager launches")
         launches["gridgen_values"] += nccl["launches"]
+        launches["packed_eval"] += nccl["packed_eval_launches"]
 
     t0 = time.perf_counter()
     mesh_run = distributed.launch(_sampler_rank, 3, (cfg, 3),
@@ -3846,11 +4267,14 @@ def phase_scaleout_path(torch, seed, smi, device="cuda", spacing=SPACING,
     check(delta <= SCALEOUT_GATE * scale, f"scaleout: the dp = 3 ladder's "
           f"energies are {delta} kJ/mol from one process's")
     launches["gridgen_values"] += sum(r["launches"] for r in mesh_run)
+    launches["packed_eval"] += sum(r["packed_eval_launches"]
+                                   for r in mesh_run)
     emit({"phase": "scaleout_path", "seconds": time.perf_counter() - t_phase,
           "launches": launches})
     if on_card:
         check(launches["gridgen_values"] >= 3 * 4
-              and launches["gridgen_derivs"] >= 3 * 2,
+              and launches["gridgen_derivs"] >= 3 * 2
+              and launches["packed_eval"] > 0,
               f"scaleout: kernel launches {launches}")
     return launches
 
@@ -3876,6 +4300,7 @@ def main(argv=None):
     phase_build()
     phase_sass()
     phase_ragged(torch)
+    phase_packed_eval_ragged(torch)
     phase_twofloat_check(torch, args.seed)
 
     lig, lig_crd, rec, rec_crd = synthetic_complex(args.seed)
@@ -3887,12 +4312,18 @@ def main(argv=None):
         "gridgen_derivs": phase_kernel_check_derivs(torch, rec, rec_crd,
                                                     counts, origin,
                                                     sm_count)}
-    launches = {"gridgen_values": {}, "gridgen_derivs": {}}
-    system, binding, _, states, launches["gridgen_values"]["main_path"] = \
+    launches = {"gridgen_values": {}, "gridgen_derivs": {},
+                "packed_eval": {}}
+    system, binding, _, states, launches["gridgen_values"]["main_path"], \
+        launches["packed_eval"]["main_path"] = \
         phase_main_path(torch, args.seed, *complex_)
     main_poses = states.positions[:N_PHYSICS_POSES].cpu()
     phase_eval_check(torch, lig, system, binding, states)
+    evaluation = {"main_path": phase_packed_eval_check(
+        torch, "main_path", binding.grid, binding.scaling, states.positions)}
     phase_step_profile(torch, system, binding, states)
+    phase_step_profile_plain(torch, system, binding, states,
+                             "step_profile_plain_eval")
     temps = torch.full((N_REPLICAS,), 300.0, device="cuda")
     phase_segment_graph_check(torch, "main_path", system, binding, states,
                               GRAPH_CHECK_STEPS, 0.001, temps, args.seed)
@@ -3900,12 +4331,17 @@ def main(argv=None):
     del binding
 
     system, binding, hermite, states, \
-        launches["gridgen_derivs"]["deriv_path"] = \
+        launches["gridgen_derivs"]["deriv_path"], \
+        launches["packed_eval"]["deriv_path"] = \
         phase_deriv_path(torch, args.seed, *complex_)
     phase_deriv_setup_times(torch, rec, rec_crd, counts, origin)
     phase_deriv_eval_check(torch, lig, system, binding, hermite, states)
+    evaluation["deriv_path"] = phase_packed_eval_check(
+        torch, "deriv_path", binding.grid, binding.scaling, states.positions)
     phase_step_profile(torch, system, binding, states,
                        phase="deriv_step_profile")
+    phase_step_profile_plain(torch, system, binding, states,
+                             "deriv_step_profile_plain_eval")
     phase_segment_graph_check(torch, "deriv_path", system, binding, states,
                               GRAPH_CHECK_STEPS, 0.001, temps, args.seed)
     del binding, hermite
@@ -3915,13 +4351,15 @@ def main(argv=None):
                                                    gap=BPMF_RECEPTOR_GAP)
     check(grid_box(lig_crd) == (counts, origin), "the BPMF complex's "
           "ligand differs from the other paths'")
-    launches["gridgen_values"]["bpmf_path"] = phase_bpmf_path(
-        torch, args.seed, lig, lig_crd, rec, rec_crd, counts, origin)
+    bpmf = phase_bpmf_path(torch, args.seed, lig, lig_crd, rec, rec_crd,
+                           counts, origin)
+    for name in ("gridgen_values", "packed_eval"):
+        launches[name]["bpmf_path"] = bpmf[name]
     api_launches = phase_api_path(torch, args.seed, smi, lig, lig_crd, rec,
                                   rec_crd, counts, origin)
     launches["gridgen_values"]["api_path"] = api_launches["gridgen_values"]
     scaleout = phase_scaleout_path(torch, args.seed, smi)
-    for name in ("gridgen_values", "gridgen_derivs"):
+    for name in ("gridgen_values", "gridgen_derivs", "packed_eval"):
         launches[name]["scaleout_path"] = scaleout[name]
 
     lig, lig_crd, rec, rec_crd = synthetic_complex(args.seed)
@@ -3933,8 +4371,10 @@ def main(argv=None):
     workdir = tempfile.mkdtemp(prefix=".chip_smoke_tiles_",
                                dir=os.path.dirname(os.path.abspath(__file__)))
     try:
+        _packed_eval().launches = 0
         accuracy = phase_accuracy_path(torch, smi, main_poses, lig, rec,
                                        rec_crd, counts, origin, workdir)
+        launches["packed_eval"]["accuracy_path"] = _packed_eval().launches
         for name in ("gridgen_values", "gridgen_derivs"):
             launches[name]["accuracy_path"] = accuracy[name]
         tiled_launches, files, deriv_files = phase_tiled_generation(
@@ -3943,18 +4383,22 @@ def main(argv=None):
             launches[name]["tiled_generation"] = n
         phase_streamed_eval_check(torch, args.seed, lig, lig_crd, files,
                                   deriv_files, counts)
-        phase_streamed_path(torch, args.seed, lig, lig_crd, files,
-                            args.stream_steps)
+        launches["packed_eval"]["streamed_path"] = phase_streamed_path(
+            torch, args.seed, lig, lig_crd, files, args.stream_steps)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
     replaces = {
         "gridgen_values": "openmmgridforce_tpu/ops/pallas_gridgen.py:39",
         "gridgen_derivs":
-            "openmmgridforce_tpu/ops/pallas_gridgen_derivs.py:36"}
+            "openmmgridforce_tpu/ops/pallas_gridgen_derivs.py:36",
+        # XLA einsums in the JAX package, not a Pallas kernel
+        "packed_eval": "openmmgridforce_tpu/ops/packed.py:765"}
     # the gated error of each kernel: max |kernel - plain| over max |plain|
-    # (per derivative slot for gridgen_derivs, whose raw sums reach 1e33)
-    rel_key = {"gridgen_values": "rel_err", "gridgen_derivs": "rel_err_f32"}
+    # (per derivative slot for gridgen_derivs, whose raw sums reach 1e33;
+    # the larger of the energies' and the forces' for packed_eval)
+    rel_key = {"gridgen_values": "rel_err", "gridgen_derivs": "rel_err_f32",
+               "packed_eval": "rel_err"}
     def line(name, per_type, by_path, rel, source):
         return {
             "name": name, "route": "cuda",
@@ -3971,11 +4415,19 @@ def main(argv=None):
                          else "operations"),
             "library_ms": None}
 
+    for path in ("main_path", "deriv_path", "bpmf_path", "streamed_path",
+                 "scaleout_path"):
+        check(launches["packed_eval"][path] > 0, f"packed_eval was not "
+              f"launched on {path}")
+    # packed_eval's figures: main_path's B-spline pack (d = 4) and
+    # deriv_path's triquintic Chebyshev pack (d = 6), one recorded call
+    # each, summed;
     # the float64 instantiations are timed over the whole bench grid (K1)
     # and over the checked slabs (K2), kernel, twin and bound alike
     emit({"kernels": [
         line(name, per_type, launches[name], rel_key[name], name)
-        for name, per_type in checks.items()] + [
+        for name, per_type in (*checks.items(),
+                               ("packed_eval", evaluation))] + [
         line(f"{name}_f64", checks_f64[name],
              {"float64_generation": launches_f64[name],
               "accuracy_path": accuracy[f"{name}_f64"],

@@ -30,6 +30,7 @@ LIBRARIES = {
     "gridgen_values": ("gridgen_values.cu",),
     "gridgen_derivs": ("gridgen_derivs.cu",),
     "graph_while": ("graph_while.cu",),
+    "packed_eval": ("packed_eval.cu",),
 }
 
 

@@ -185,7 +185,12 @@ def grid_energy(grids: Sequence[GridBinding], positions):
 
 def potential_energy(system: System, grids: Sequence[GridBinding],
                      positions):
-    """Total potential energy (differentiable with torch.autograd)."""
+    """Total potential energy (differentiable with torch.autograd).
+
+    On the card a fused polynomial pack's energy is differentiable in the
+    positions only: its kernel (``ops/cuda_packed_eval.py``) raises where
+    the scalings or the coefficients require grad, which the host's route
+    differentiates."""
     e = bonded_energy(positions, system)
     if system.pairs is not None:
         e = e + pair_energy_forces(system.pairs, positions)[0]

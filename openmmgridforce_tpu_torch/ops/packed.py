@@ -39,6 +39,7 @@ from ..device import resolve_device
 from ..grid import Grid, InterpolationMethod
 from . import basis
 from .chain_rules import apply_invpower, invpower_value
+from .cuda_packed_eval import packed_eval
 from .derivatives27 import DERIV_ORDERS, TRICUBIC_DERIV_MAP
 from .interpolate import (_CORNER_CX, _CORNER_CY, _CORNER_CZ,
                           HERMITE_FAMILIES, GridEval, _hermite_tensor_eval,
@@ -429,6 +430,24 @@ def _gather_rows(table, positions):
     return pos, corner, inside, f, rows.reshape(cell.shape + (-1,))
 
 
+def _gather_window(table, positions, x_lo: int, x_count: int):
+    """``_gather_rows`` on a table that holds the cells [x_lo, x_lo +
+    x_count) along x (a rank's slab of a table split over x-cells).
+
+    Returns (pos, corner, inside, owned, f, rows [..., N, width]): owned
+    are the atoms inside whose cell the table holds; the others read a
+    clamped row."""
+    pos, corner, inside, ixyz, f = locate(positions, table.spacing,
+                                          table.origin, table.counts)
+    _, ncy, ncz = table.cell_counts
+    local_x = ixyz[..., 0] - x_lo
+    owned = (local_x >= 0) & (local_x < x_count) & inside
+    cell = (local_x.clamp(0, x_count - 1) * ncy + ixyz[..., 1]) * ncz \
+        + ixyz[..., 2]
+    rows = table.coeffs.index_select(0, cell.reshape(-1))
+    return pos, corner, inside, owned, f, rows.reshape(cell.shape + (-1,))
+
+
 def evaluate_packed(packed: PackedGrid, positions,
                     scaling_factors) -> GridEval:
     """Energy and forces of atoms [..., N, 3] on one packed grid."""
@@ -568,7 +587,9 @@ def _finish_multi(interp, grad_s, back_powers, spacing, scaling, pos,
 
 def evaluate_multi(multi: MultiPackedGrid, positions,
                    scaling_factors) -> GridEval:
-    """Evaluate all fused grids with one gather per atom.
+    """Evaluate all fused grids with one gather per atom: on the card the
+    hand-written kernel (``cuda_packed_eval``), on the host its plain
+    twin.
 
     Args:
       positions: [..., N, 3].
@@ -578,12 +599,8 @@ def evaluate_multi(multi: MultiPackedGrid, positions,
     the out-of-bounds restraint is applied once for the fused set.
     """
     positions, scaling = _inputs(multi, positions, scaling_factors)
-    pos, corner, inside, f, rows = _gather_rows(multi, positions)
-    d = multi.degree
-    R = rows.reshape(rows.shape[:-1] + (multi.n_grids, d, d, d))
-    interp, grad_s = _tensor_poly(R, f, d, multi.poly_basis)
-    return _finish_multi(interp, grad_s, multi.back_powers, multi.spacing,
-                         scaling, pos, corner, inside, multi.oob_k)
+    per_atom, forces = packed_eval(multi, positions, scaling)
+    return GridEval(per_atom.sum(-1), forces, per_atom)
 
 
 # ----------------------------------------------------------------------

@@ -33,13 +33,14 @@ import dataclasses
 
 import torch
 
+from ..ops.cuda_packed_eval import packed_eval
 from ..ops.interpolate import (HERMITE_FAMILIES, GridEval,
-                                grid_back_power, locate)
+                                grid_back_power)
 from ..ops.packed import (_DEGREES, _HERMITE_METHODS, HermitePackedGrid,
                           MultiHermitePackedGrid, MultiPackedGrid,
                           _default_basis, _FusedCells, _finish_multi,
-                          _hermite_tensor_eval, _inputs, _pack_cells,
-                          _tensor_poly, points_read)
+                          _gather_window, _hermite_tensor_eval, _inputs,
+                          _pack_cells, points_read)
 from .mesh import Mesh
 from .sharded_gridgen import slab_rows
 
@@ -200,30 +201,27 @@ def _eval_local_slab(grid: ShardedPackedGrid, positions, scaling,
     positions, scaling = _inputs(grid, positions, scaling)
     if scaling.dim() == 1:
         scaling = scaling[None]
-    pos, corner, inside, ixyz, f = locate(positions, grid.spacing,
-                                          grid.origin, grid.counts)
-    _, ncy, ncz = grid.cell_counts
     slab = grid.ncx_padded // mesh.size(axis)
     me = mesh.index(axis)
-    local_x = ixyz[..., 0] - me * slab
-    owned = (local_x >= 0) & (local_x < slab) & inside
-    cell = (local_x.clamp(0, slab - 1) * ncy + ixyz[..., 1]) * ncz \
-        + ixyz[..., 2]
-    rows = grid.coeffs.index_select(0, cell.reshape(-1)).reshape(
-        cell.shape + (-1,))
-    G = grid.n_grids
-    if grid.form == "hermite":
-        X = rows.reshape(rows.shape[:-1] + (G, 8, -1))
-        interp, grad_s = _hermite_tensor_eval(X, f,
-                                              *HERMITE_FAMILIES[grid.method])
-    else:
-        d = grid.degree
-        R = rows.reshape(rows.shape[:-1] + (G, d, d, d))
-        interp, grad_s = _tensor_poly(R, f, d, grid.poly_basis)
+    if grid.form != "hermite":
+        per_atom, forces = packed_eval(grid, positions, scaling,
+                                       x_lo=me * slab, x_count=slab,
+                                       restrain=me == 0)
+        return _all_reduce(per_atom, forces, mesh, axis)
+    pos, corner, inside, owned, f, rows = _gather_window(
+        grid, positions, me * slab, slab)
+    X = rows.reshape(rows.shape[:-1] + (grid.n_grids, 8, -1))
+    interp, grad_s = _hermite_tensor_eval(X, f,
+                                          *HERMITE_FAMILIES[grid.method])
     res = _finish_multi(interp, grad_s, grid.back_powers, grid.spacing,
                         scaling, pos, corner, inside, grid.oob_k,
                         owned=owned, restrain=me == 0)
-    both = torch.cat([res.per_atom_energy[..., None], res.forces], dim=-1)
+    return _all_reduce(res.per_atom_energy, res.forces, mesh, axis)
+
+
+def _all_reduce(per_atom, forces, mesh: Mesh, axis: str) -> GridEval:
+    """The ranks' per-atom energies and forces summed over ``axis``."""
+    both = torch.cat([per_atom[..., None], forces], dim=-1)
     mesh.all_reduce(both, axis)
     # contiguous: the energy sums the atoms in the unsharded order
     per_atom = both[..., 0].contiguous()

@@ -5,13 +5,15 @@ port is installed:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 import chip_smoke
 from openmmgridforce_tpu_torch.ops import (cuda_gridgen, cuda_gridgen_derivs,
-                                           gridgen)
+                                           cuda_packed_eval, gridgen, packed)
 
 pytestmark = pytest.mark.cuda
 
@@ -363,6 +365,116 @@ def test_streamed_batch_md_on_the_card_matches_the_host(cuda, tmp_path):
 
 
 # ----------------------------------------------------------------------
+# K3: the fused evaluation of a pack
+# ----------------------------------------------------------------------
+
+def _k3_case(cuda, degree, poly_basis, n_grids, dtype, lead=(), seed=11):
+    table = chip_smoke.random_pack(seed, degree, poly_basis, n_grids, dtype,
+                                   cuda)
+    x = torch.as_tensor(chip_smoke.packed_eval_positions(seed + 2, lead),
+                        dtype=dtype, device=cuda)
+    s = torch.as_tensor(chip_smoke.packed_eval_scaling(seed + 6, n_grids),
+                        dtype=dtype, device=cuda)
+    return table, x, s
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("poly_basis", chip_smoke.PACKED_EVAL_BASES)
+@pytest.mark.parametrize("degree", chip_smoke.PACKED_EVAL_DEGREES)
+def test_packed_eval_matches_plain_twin(cuda, degree, poly_basis, dtype):
+    """K3 against its plain twin on the card (G = 1 and 3, leading dims []
+    and [R]; atoms inside, on the box's faces and outside, zero scalings,
+    a back power) at chip_smoke's gates, one launch a call; and
+    evaluate_multi on a CUDA pack goes through it."""
+    gate = chip_smoke.PACKED_EVAL_GATE[str(dtype).rsplit(".", 1)[-1]]
+    for n_grids in (1, 3):
+        for lead in ((), (chip_smoke.PACKED_EVAL_REPLICAS,)):
+            table, x, s = _k3_case(cuda, degree, poly_basis, n_grids, dtype,
+                                   lead)
+            before = cuda_packed_eval.packed_eval.launches
+            got = cuda_packed_eval.packed_eval(table, x, s)
+            multi = packed.evaluate_multi(table, x, s)
+            ref = cuda_packed_eval.packed_eval_plain(table, x, s)
+            torch.cuda.synchronize()
+            assert cuda_packed_eval.packed_eval.launches == before + 2
+            assert got[0].shape == x.shape[:-1] and got[1].shape == x.shape
+            assert torch.equal(multi.per_atom_energy, got[0])
+            assert torch.equal(multi.forces, got[1])
+            err = chip_smoke.packed_eval_errors(got, ref)
+            assert err["E_rel"] <= gate and err["F_rel"] <= gate, err
+
+
+def test_packed_eval_raises_on_what_it_does_not_take(cuda):
+    """float16 and bfloat16 packs and unsupported degrees raise on the
+    card; nothing gives way to the plain twin."""
+    table, x, s = _k3_case(cuda, 4, "monomial", 3, torch.float32)
+    before = cuda_packed_eval.packed_eval.launches
+    for dtype in (torch.float16, torch.bfloat16):
+        low = dataclasses.replace(table, coeffs=table.coeffs.to(dtype),
+                                  spacing=table.spacing.to(dtype),
+                                  origin=table.origin.to(dtype))
+        with pytest.raises(ValueError, match="float32 or float64"):
+            packed.evaluate_multi(low, x, s)
+    odd = dataclasses.replace(table, degree=3, coeffs=torch.zeros(
+        (table.coeffs.shape[0], 3 * 27), device=cuda))
+    with pytest.raises(ValueError, match="degrees"):
+        packed.evaluate_multi(odd, x, s)
+    assert cuda_packed_eval.packed_eval.launches == before
+
+
+def test_packed_eval_autograd_on_the_card(cuda):
+    """On the card the energy is differentiable in the positions: the
+    gradient is -forces, through evaluate_multi and through
+    mm.system.potential_energy on a K3 pack."""
+    from openmmgridforce_tpu_torch.mm import system
+
+    table, x, s = _k3_case(cuda, 6, "chebyshev", 3, torch.float64, (3,))
+    x.requires_grad_(True)
+    res = packed.evaluate_multi(table, x, s)
+    res.energy.sum().backward()
+    assert torch.equal(x.grad, -res.forces)
+
+    pos, ts, binding = _ladder_system(cuda, torch.float32)
+    p = torch.as_tensor(pos, dtype=torch.float32, device=cuda)
+    p = p.expand(2, *p.shape).clone().requires_grad_(True)
+    system.potential_energy(ts, [binding], p).sum().backward()
+    want = system.energy_and_forces(ts, [binding], p.detach())[1]
+    scale = float(want.abs().max())
+    assert float((p.grad + want).abs().max()) <= 1e-4 * scale
+
+
+def _sharded_k3_worker(device):
+    """A K3 pack split over 2 ranks (gloo) on the card, evaluated there;
+    and the launches each rank made."""
+    from openmmgridforce_tpu_torch.parallel import (Mesh,
+                                                    make_sharded_grid_eval,
+                                                    shard_packed_grid)
+
+    mesh = Mesh((2,), ("sp",), device)
+    table, x, s = _k3_case(device, 6, "chebyshev", 3, torch.float32, (4,))
+    before = cuda_packed_eval.packed_eval.launches
+    res = make_sharded_grid_eval(mesh)(shard_packed_grid(table, mesh), x, s)
+    return {"energy": res.energy, "forces": res.forces,
+            "per_atom": res.per_atom_energy,
+            "launches": cuda_packed_eval.packed_eval.launches - before}
+
+
+def test_sharded_k3_window_on_the_card_matches_one_rank(cuda):
+    """Two gloo ranks on cuda:0 each launch K3 once on their slab window;
+    the all-reduced result equals one rank's evaluate_multi bit for bit."""
+    from openmmgridforce_tpu_torch.parallel import distributed
+
+    ranks = distributed.launch(_sharded_k3_worker, 2, backend="gloo")
+    one = packed.evaluate_multi(*_k3_case(cuda, 6, "chebyshev", 3,
+                                          torch.float32, (4,)))
+    for r in ranks:
+        assert r["launches"] == 1
+        assert torch.equal(r["per_atom"], one.per_atom_energy.cpu())
+        assert torch.equal(r["forces"], one.forces.cpu())
+        assert torch.equal(r["energy"], one.energy.cpu())
+
+
+# ----------------------------------------------------------------------
 # Recorded MD segments
 # ----------------------------------------------------------------------
 
@@ -411,6 +523,7 @@ def test_md_runner_graph_equals_eager(cuda, constraints):
     run = system.make_md_runner(n_steps, 0.002 if constraints else 0.001,
                                 5.0, device=cuda)
     out = {}
+    before = cuda_packed_eval.packed_eval.launches
     for mode in ("graph", "eager"):
         states = convert.states_from_arrays(pos, np.zeros_like(pos), seed=0,
                                             dtype=torch.float32, device=cuda)
@@ -420,6 +533,51 @@ def test_md_runner_graph_equals_eager(cuda, constraints):
         else:
             out[mode] = run(states, ts, [binding], temps, noise=noise)
     torch.cuda.synchronize()
+    assert cuda_packed_eval.packed_eval.launches > before
+    for field in ("positions", "velocities"):
+        a, b = (getattr(out[m], field) for m in ("graph", "eager"))
+        assert torch.isfinite(a).all()
+        assert torch.equal(a, b), (field, float((a - b).abs().max()))
+
+
+@pytest.mark.parametrize("degree", chip_smoke.PACKED_EVAL_DEGREES)
+def test_recorded_segment_on_k3_packs_equals_eager(cuda, degree):
+    """A recorded make_md_runner segment on a K3 pack of each degree
+    (seeded Chebyshev coefficients on the ladder's geometry, a back power)
+    equals the same blocks run eagerly bit for bit."""
+    from openmmgridforce_tpu_torch import convert
+    from openmmgridforce_tpu_torch.mm import GridBinding, graphs, system
+
+    x, ts, binding = _ladder_system(cuda, torch.float32)
+    grid = binding.grid
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(degree)
+    table = dataclasses.replace(
+        grid, degree=degree, poly_basis="chebyshev",
+        back_powers=(0.0, 3.0, 0.0),
+        coeffs=0.1 * torch.randn((grid.coeffs.shape[0],
+                                  grid.n_grids * degree ** 3),
+                                 generator=gen, device=cuda))
+    binding = GridBinding(table, binding.scaling)
+    rng = np.random.default_rng(4)
+    n_steps, R = 10, 8
+    pos = x + 0.01 * rng.standard_normal((R,) + x.shape)
+    noise = torch.as_tensor(rng.standard_normal((n_steps,) + pos.shape),
+                            dtype=torch.float32, device=cuda)
+    temps = torch.full((R,), 300.0, device=cuda)
+    run = system.make_md_runner(n_steps, 0.001, 5.0, device=cuda)
+    out = {}
+    before = cuda_packed_eval.packed_eval.launches
+    for mode in ("graph", "eager"):
+        states = convert.states_from_arrays(pos, np.zeros_like(pos), seed=0,
+                                            dtype=torch.float32, device=cuda)
+        if mode == "eager":
+            with graphs.eager():
+                out[mode] = run(states, ts, [binding], temps, noise=noise)
+        else:
+            out[mode] = run(states, ts, [binding], temps, noise=noise)
+    torch.cuda.synchronize()
+    assert cuda_packed_eval.packed_eval.launches > before
     for field in ("positions", "velocities"):
         a, b = (getattr(out[m], field) for m in ("graph", "eager"))
         assert torch.isfinite(a).all()

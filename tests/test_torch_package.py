@@ -19,7 +19,8 @@ from openmmgridforce_tpu_torch.mm import constraints, system
 from openmmgridforce_tpu_torch import cuda_build
 from openmmgridforce_tpu_torch.io import streaming
 from openmmgridforce_tpu_torch.ops import (cuda_gridgen, cuda_gridgen_derivs,
-                                           gridgen, packed, pairwise, radial)
+                                           cuda_packed_eval, gridgen, packed,
+                                           pairwise, radial)
 from openmmgridforce_tpu_torch.parallel import replicas
 from openmmgridforce_tpu_torch.sampling import Sampler, SamplerConfig
 
@@ -75,11 +76,12 @@ def test_no_jax_in_sources():
 
 
 def test_every_kernel_has_its_source():
-    """One library per kernel of the TPU-kernel table, each with its
-    sources under csrc/, a wrapper with a launch counter, and a plain twin
-    beside it; beside them the binding that adds conditional WHILE nodes
-    to recorded MD segments (no TPU kernel's port)."""
-    kernels = {"gridgen_values", "gridgen_derivs"}
+    """One library per kernel of the TPU-kernel table (K1, K2, and K3,
+    the fused evaluation of a pack), each with its sources under csrc/, a
+    wrapper with a launch counter, and a plain twin beside it; beside them
+    the binding that adds conditional WHILE nodes to recorded MD segments
+    (no TPU kernel's port)."""
+    kernels = {"gridgen_values", "gridgen_derivs", "packed_eval"}
     assert set(cuda_build.LIBRARIES) == kernels | {"graph_while"}
     text = (cuda_build.CSRC / "graph_while.cu").read_text()
     assert 'extern "C"' in text and "__global__" in text
@@ -92,7 +94,8 @@ def test_every_kernel_has_its_source():
             assert f'extern "C" int {name}_launch(' in text, src
             assert "__global__" in text, src
     for module, name in ((cuda_gridgen, "gridgen_values"),
-                         (cuda_gridgen_derivs, "gridgen_derivs")):
+                         (cuda_gridgen_derivs, "gridgen_derivs"),
+                         (cuda_packed_eval, "packed_eval")):
         assert getattr(module, name).launches == 0
         assert callable(getattr(module, name + "_plain"))
 
