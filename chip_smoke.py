@@ -896,18 +896,28 @@ def _dtype_name(dtype):
     return str(dtype).rsplit(".", 1)[-1]
 
 
+def packed_eval_instance(entry):
+    """A K3 instantiation's name from its mangled entry function
+    ("d6 chebyshev float32 G3"; G0: the runtime grid loop), or None."""
+    key = re.search(r"kernelILi(\d)ELb(\d)E([fd])(?:Li(\d+)E)?E", entry)
+    if not key:
+        return None
+    d, cheb, real, grids = key.groups()
+    name = (f"d{d} {'chebyshev' if cheb == '1' else 'monomial'} "
+            f"{'float64' if real == 'd' else 'float32'}")
+    return name if grids is None else f"{name} G{grids}"
+
+
 def _packed_eval_registers():
     """Registers a thread of each K3 instantiation from the build log:
-    {"d4 chebyshev float32": n, ...}."""
+    {"d4 chebyshev float32 G3": n, ...}."""
     from openmmgridforce_tpu_torch import cuda_build
 
     out = {}
     for entry, n in cuda_build.kernel_registers("packed_eval").items():
-        key = re.search(r"kernelILi(\d)ELb(\d)E([fd])E", entry)
-        if key:
-            d, cheb, real = key.groups()
-            out[f"d{d} {'chebyshev' if cheb == '1' else 'monomial'} "
-                f"{'float64' if real == 'd' else 'float32'}"] = n
+        name = packed_eval_instance(entry)
+        if name:
+            out[name] = n
     return out
 
 
@@ -1038,6 +1048,19 @@ def packed_eval_bound(torch, table, positions, scaling):
             "gather_bound_ms": 1e3 * (n_in * row + rest) / H100_BYTES_PER_S}
 
 
+def packed_eval_poses(torch, table, positions):
+    """A path's final poses [R, N, 3] for K3's check: replica 0's first
+    atoms moved onto the box's low and high corners and replica 1's first
+    five outside."""
+    x = positions.clone()
+    lo = table.origin
+    hi = table.origin + table.spacing * torch.tensor(
+        [c - 1 for c in table.counts], dtype=lo.dtype, device=lo.device)
+    x[0, 0], x[0, 1] = lo, hi
+    x[1, :5] = hi + 0.05
+    return x
+
+
 def phase_packed_eval_check(torch, path, table, scaling, positions):
     """K3 against its plain twin on a path's fused pack at its final
     poses [R, N, 3] (replica 0's first atoms moved onto the box's low and
@@ -1046,14 +1069,9 @@ def phase_packed_eval_check(torch, path, table, scaling, positions):
     recorded as a CUDA graph, beside the bound. Returns the kernels-line
     figures."""
     from openmmgridforce_tpu_torch.ops.cuda_packed_eval import (
-        packed_eval, packed_eval_plain)
+        launch_plan, packed_eval, packed_eval_plain)
 
-    x = positions.clone()
-    lo = table.origin
-    hi = table.origin + table.spacing * torch.tensor(
-        [c - 1 for c in table.counts], dtype=lo.dtype, device=lo.device)
-    x[0, 0], x[0, 1] = lo, hi
-    x[1, :5] = hi + 0.05
+    x = packed_eval_poses(torch, table, positions)
     errors = {}
     for dtype in (torch.float32, torch.float64):
         t = dataclasses.replace(table, coeffs=table.coeffs.to(dtype),
@@ -1074,9 +1092,15 @@ def phase_packed_eval_check(torch, path, table, scaling, positions):
         "plain_graph_ms": _graph_ms(torch, lambda: packed_eval_plain(*args),
                                     PACKED_EVAL_REPS)}
     bound = packed_eval_bound(torch, table, x, scaling)
+    plan = launch_plan(table.degree, table.n_grids, table.coeffs.dtype)
     emit({"phase": "packed_eval_check", "packs": path,
           "table_shape": list(table.coeffs.shape), "degree": table.degree,
           "poly_basis": table.poly_basis, "poses": list(x.shape[:2]),
+          "plan": {"tile_atoms": plan.tile_atoms,
+                   "threads": plan.threads,
+                   "slot_bytes": plan.slot_bytes,
+                   "shared_bytes": plan.shared_bytes,
+                   "blocks": plan.blocks(x.shape[0] * x.shape[1])},
           "errors": errors, "gate": PACKED_EVAL_GATE, **times, **bound,
           "bound_share": bound["bound_ms"] / times["graph_ms"],
           "gather_bound_share": bound["gather_bound_ms"] / times["graph_ms"],

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import torch
 
+from ..ops.lanewise import lanewise
 from ..ops.scatter import row_sum, row_sum_plan
 
 
@@ -64,7 +65,7 @@ def torsion_energy(positions, idx, k, periodicity, phase):
     m1 = _cross(n1, b2 / torch.linalg.norm(b2, dim=-1, keepdim=True))
     x = (n1 * n2).sum(-1)
     y = (m1 * n2).sum(-1)
-    phi = torch.atan2(y, x)
+    phi = lanewise(torch.atan2, y, x)
     return (k * (1.0 + torch.cos(periodicity * phi - phase))).sum(-1)
 
 
@@ -134,7 +135,7 @@ def _torsion_contribs(positions, idx, k, periodicity, phase):
     m1 = _cross(n1, b2 / nb2[..., None])
     x = (n1 * n2).sum(-1)
     y = (m1 * n2).sum(-1)
-    phi = torch.atan2(y, x)
+    phi = lanewise(torch.atan2, y, x)
     e = (k * (1.0 + torch.cos(periodicity * phi - phase))).sum(-1)
 
     de_dphi = -k * periodicity * torch.sin(periodicity * phi - phase)

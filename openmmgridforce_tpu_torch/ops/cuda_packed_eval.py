@@ -25,6 +25,7 @@ atoms whose cell lies there, and the restraint only where ``restrain``.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -74,12 +75,76 @@ def packed_eval_plain(table, positions, scaling, x_lo: int = 0,
 # The kernel
 # ----------------------------------------------------------------------
 
+LANES = 4                 # threads an atom
+TILE_ATOMS = 16           # atoms a block stages, at most (32: 128 threads)
+MAX_SHARED = 232_448      # bytes of shared memory a block may use (H100)
+BARRIER_BYTES = 16        # the kernel's static mbarrier
+MAX_ATOMS = 2 ** 31 - 1   # atoms a call (the kernel indexes in 32 bits)
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    """How the kernel tiles a launch: ``tile_atoms`` atoms a block (4
+    threads each), each atom's row of ``row_bytes`` staged in a slot of
+    ``slot_bytes`` of shared memory; ``shared_bytes`` is a block's whole
+    use of it (slots and barrier)."""
+
+    tile_atoms: int
+    row_bytes: int
+    slot_bytes: int
+
+    @property
+    def threads(self) -> int:
+        return LANES * self.tile_atoms
+
+    @property
+    def shared_bytes(self) -> int:
+        return self.tile_atoms * self.slot_bytes + BARRIER_BYTES
+
+    def blocks(self, n_total: int) -> int:
+        return -(-int(n_total) // self.tile_atoms)
+
+
+def launch_plan(degree: int, n_grids: int, dtype) -> LaunchPlan:
+    """The kernel's tile for rows of ``n_grids`` grids of ``degree`` in
+    ``dtype``: TILE_ATOMS atoms a block, fewer where their slots would
+    pass a block's shared memory (whole warps of 8 atoms where 8 fit). A
+    slot is the row's bytes, 64 more where the row is a multiple of 128
+    (so that the two atoms a quarter-warp reads start on different
+    banks). Raises where one row does not fit."""
+    row = int(n_grids) * int(degree) ** 3 * torch.finfo(dtype).bits // 8
+    slot = row + 64 if row % 128 == 0 else row
+    fit = (MAX_SHARED - BARRIER_BYTES) // slot
+    if fit < 1:
+        raise ValueError(f"the packed_eval kernel stages a row of {row} "
+                         f"bytes ({n_grids} grids of degree {degree}, "
+                         f"{dtype}) in shared memory; a block has "
+                         f"{MAX_SHARED}")
+    tile = min(TILE_ATOMS, fit)
+    if tile >= 8:
+        tile -= tile % 8
+    return LaunchPlan(tile_atoms=tile, row_bytes=row, slot_bytes=slot)
+
+
+def atom_order(n_total: int, n_atoms: int) -> torch.Tensor:
+    """The atom each launch slot evaluates in the kernel's atom-major
+    order (its ``kAtomMajor`` switch, which ``kernel_variants.py`` times;
+    the shipped kernel takes the [B, N] order, slot j atom j): slot j is
+    replica j % B of ligand atom j // B (B = n_total / n_atoms), so the
+    replicas of one ligand atom, which share cells, run side by side.
+    Atoms are numbered in the [B, N] order of the positions."""
+    replicas = n_total // n_atoms
+    j = torch.arange(n_total)
+    return (j % replicas) * n_atoms + j // replicas
+
+
 def _declare(lib):
     """Declares the C entry points of the kernel's shared library."""
     fn = lib.packed_eval_launch
     fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_longlong]
-                   + [ctypes.c_int] * 11 + [ctypes.c_double, ctypes.c_int,
-                                            ctypes.c_void_p])
+                   + [ctypes.c_int] * 12
+                   + [ctypes.c_double] + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     lib.packed_eval_error_string.argtypes = [ctypes.c_int]
     lib.packed_eval_error_string.restype = ctypes.c_char_p
@@ -94,8 +159,8 @@ def _library():
     return _declare(cuda_build.load("packed_eval"))
 
 
-def _check_cuda(table, positions, scaling, x_lo, x_count):
-    """Raises on what the kernel does not take."""
+def _check_cuda(table, positions, scaling, x_lo, x_count) -> LaunchPlan:
+    """Raises on what the kernel does not take; else its launch plan."""
     coeffs, device = table.coeffs, positions.device
     if coeffs.dtype not in (torch.float32, torch.float64):
         raise ValueError(f"the packed_eval kernel takes float32 or float64, "
@@ -105,7 +170,8 @@ def _check_cuda(table, positions, scaling, x_lo, x_count):
                          f"got {table.degree}")
     if table.poly_basis not in POLY_BASES:
         raise ValueError(f"unknown poly_basis {table.poly_basis!r}")
-    width = table.n_grids * table.degree ** 3
+    G = table.n_grids
+    width = G * table.degree ** 3
     if coeffs.dim() != 2 or coeffs.shape[1] != width:
         raise ValueError(f"coeffs must be [cells, {width}], got "
                          f"{tuple(coeffs.shape)}")
@@ -114,6 +180,10 @@ def _check_cuda(table, positions, scaling, x_lo, x_count):
     if min(table.counts) < 2:
         raise ValueError(f"a pack needs 2 points an axis, got "
                          f"{table.counts}")
+    if len(table.back_powers) != G:
+        raise ValueError(f"{len(table.back_powers)} back powers for {G} "
+                         f"grids")
+    plan = launch_plan(table.degree, G, coeffs.dtype)
     _, ncy, ncz = table.cell_counts
     if x_lo < 0 or x_count * ncy * ncz > coeffs.shape[0]:
         raise ValueError(f"the table's {coeffs.shape[0]} rows do not hold "
@@ -126,12 +196,13 @@ def _check_cuda(table, positions, scaling, x_lo, x_count):
                              f"got {t.dtype} on {t.device}")
     if device.type != "cuda":
         raise ValueError(f"no packed_eval kernel for device {device}")
+    return plan
 
 
 def _launch(table, positions, scaling, x_lo, x_count, restrain):
     """The kernel on CUDA tensors: (energies [..., N], forces [..., N,
     3])."""
-    _check_cuda(table, positions, scaling, x_lo, x_count)
+    plan = _check_cuda(table, positions, scaling, x_lo, x_count)
     if positions.dim() < 2 or positions.shape[-1] != 3:
         raise ValueError(f"positions must be [..., N, 3], got "
                          f"{tuple(positions.shape)}")
@@ -140,7 +211,9 @@ def _launch(table, positions, scaling, x_lo, x_count, restrain):
     if scaling.shape[0] not in (1, G):
         raise ValueError(f"scaling must be [{G}, {N}] or [1, {N}], got "
                          f"{tuple(scaling.shape)}")
-    scaling = scaling.expand(G, N).contiguous()
+    # a row shared by every grid is read with a grid stride of 0, not
+    # copied for each grid
+    scaling = scaling.contiguous()
     x = positions.contiguous()
     device, dtype = x.device, x.dtype
     energy = torch.empty(x.shape[:-1], dtype=dtype, device=device)
@@ -148,18 +221,19 @@ def _launch(table, positions, scaling, x_lo, x_count, restrain):
     total = energy.numel()
     if total == 0:
         return energy, forces
-    back = const_tensor(tuple(float(b) for b in table.back_powers), dtype,
-                        device)
-    if back.numel() != G:
-        raise ValueError(f"{back.numel()} back powers for {G} grids")
+    if total > MAX_ATOMS:
+        raise ValueError(f"the packed_eval kernel takes at most {MAX_ATOMS} "
+                         f"atoms a call, got {total}")
+    back = const_tensor(tuple(table.back_powers), dtype, device)
     lib = _library()
     err = lib.packed_eval_launch(
         table.coeffs.data_ptr(), x.data_ptr(), scaling.data_ptr(),
         table.spacing.data_ptr(), table.origin.data_ptr(), back.data_ptr(),
-        energy.data_ptr(), forces.data_ptr(), total, N, G, table.degree,
+        energy.data_ptr(), forces.data_ptr(), total, N,
+        N if scaling.shape[0] > 1 else 0, G, table.degree,
         int(table.poly_basis == "chebyshev"), int(dtype == torch.float64),
         *table.counts, x_lo, x_count, int(bool(restrain)),
-        float(table.oob_k), device.index,
+        float(table.oob_k), plan.tile_atoms, plan.slot_bytes, device.index,
         torch.cuda.current_stream(device).cuda_stream)
     if err:
         raise RuntimeError("packed_eval kernel launch failed: "

@@ -36,6 +36,7 @@ from ..grid import Grid, InterpolationMethod, InvPowerMode
 from . import basis
 from .chain_rules import apply_invpower, invpower_value
 from .derivatives27 import DERIV_ORDERS, TRICUBIC_DERIV_MAP
+from .lanewise import lanewise
 
 
 class GridEval(NamedTuple):
@@ -125,8 +126,9 @@ def finish_single(interp, grad_s, back_power, spacing, scaling, pos, corner,
         a = interp.abs()
         active = a > 1e-10
         a_safe = torch.where(active, a, torch.ones_like(a))
-        pf = n * a_safe ** (n - 1.0)
-        interp = torch.where(active, sign * a_safe ** n, interp)
+        pf = n * lanewise(torch.pow, a_safe, n - 1.0)
+        interp = torch.where(active, sign * lanewise(torch.pow, a_safe, n),
+                             interp)
         grad_s = torch.where(active[..., None], grad_s * pf[..., None],
                              grad_s)
 

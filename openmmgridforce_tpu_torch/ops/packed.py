@@ -41,6 +41,7 @@ from . import basis
 from .chain_rules import apply_invpower, invpower_value
 from .cuda_packed_eval import packed_eval
 from .derivatives27 import DERIV_ORDERS, TRICUBIC_DERIV_MAP
+from .lanewise import lanewise
 from .interpolate import (_CORNER_CX, _CORNER_CY, _CORNER_CZ,
                           HERMITE_FAMILIES, GridEval, _hermite_tensor_eval,
                           cell_index, const_tensor, finish_single,
@@ -123,7 +124,12 @@ def _hermite_axis_matrix_cheb(method: int) -> np.ndarray:
 def _poly_powers(v, d: int, poly_basis: str):
     """[..., d] basis values at cell fraction v: v^p or T_p(2v - 1)."""
     if poly_basis == "monomial":
-        return torch.stack([v ** p for p in range(d)], dim=-1)
+        # by products, as the kernel forms them (no pow: ATen's rounds an
+        # element by where it lies, ops/lanewise.py)
+        P = [torch.ones_like(v)]
+        for _ in range(1, d):
+            P.append(P[-1] * v)
+        return torch.stack(P, dim=-1)
     u = 2.0 * v - 1.0
     T = [torch.ones_like(v), u]
     for _ in range(2, d):
@@ -134,8 +140,9 @@ def _poly_powers(v, d: int, poly_basis: str):
 def _poly_dpowers(v, d: int, poly_basis: str):
     """[..., d] d/dv of the basis values."""
     if poly_basis == "monomial":
+        P = _poly_powers(v, d - 1, poly_basis)
         return torch.stack([torch.zeros_like(v)]
-                           + [p * v ** (p - 1) for p in range(1, d)],
+                           + [p * P[..., p - 1] for p in range(1, d)],
                            dim=-1)
     # d/dv T_p(2v - 1) = 2 p U_{p-1}(2v - 1)
     u = 2.0 * v - 1.0
@@ -146,12 +153,40 @@ def _poly_dpowers(v, d: int, poly_basis: str):
                        + [2.0 * p * U[p - 1] for p in range(1, d)], dim=-1)
 
 
+def _host_contract(C, S, n_axes=1, perm=None):
+    """The host's form of an axis contraction ``torch.einsum`` does on the
+    card: out[p, ...] = sum_a C[p, a] S[a, ...] over the ``n_axes``
+    trailing axes of C [P, ...], which ``perm`` brings to the front of S
+    in C's order, the terms added one by one in a fixed order. BLAS
+    splits a product of this shape by the thread count, and MKL on a CPU
+    without AVX-512 then sums a coefficient's few terms in another order
+    with 2 threads than with 1: a pack would depend on the threads of the
+    process that made it (a rank of a mesh runs with its share of the
+    cores)."""
+    if perm is not None:
+        S = S.permute(perm)
+    k = int(np.prod(C.shape[1:]))
+    C = C.reshape(C.shape[0], k)
+    S = S.reshape((k,) + tuple(S.shape[n_axes:]))
+    lift = (slice(None),) + (None,) * (S.dim() - 1)
+    out = C[:, 0][lift] * S[0]
+    for a in range(1, k):
+        out = out + C[:, a][lift] * S[a]
+    return out
+
+
 def _coeffs_to_cheb(coeffs, d: int):
     """[ncells, d^3] monomial -> Chebyshev tensor coefficients."""
     B = torch.as_tensor(_monomial_to_cheb(d), dtype=coeffs.dtype,
                         device=coeffs.device)
-    R = torch.einsum("pi,qj,rk,cijk->cpqr", B, B, B,
-                     coeffs.reshape(-1, d, d, d))
+    X = coeffs.reshape(-1, d, d, d)
+    if coeffs.is_cuda:
+        R = torch.einsum("pi,qj,rk,cijk->cpqr", B, B, B, X)
+    else:
+        T = _host_contract(B, X, perm=(3, 0, 1, 2))      # [r, c, i, j]
+        T = _host_contract(B, T, perm=(3, 0, 1, 2))      # [q, r, c, i]
+        T = _host_contract(B, T, perm=(3, 0, 1, 2))      # [p, q, r, c]
+        R = T.permute(3, 0, 1, 2)
     return R.reshape(-1, d ** 3)
 
 
@@ -243,7 +278,9 @@ def _pack_values_padded(P, method, runtime_inv, inv_power, ncells):
     def contract(x, axis, ncells_axis):
         S = torch.stack([x.narrow(axis, a, ncells_axis)
                          for a in range(C.shape[1])], dim=0)
-        return torch.einsum("pa,a...->p...", C, S)
+        if S.is_cuda:
+            return torch.einsum("pa,a...->p...", C, S)
+        return _host_contract(C, S)
 
     T = contract(P, 0, ncx)          # [px, i, y, z]
     T = contract(T, 2, ncy)          # [py, px, i, j, z]
@@ -270,13 +307,20 @@ def _pack_derivs(derivs, method, runtime_inv, inv_power, counts, out_basis):
                           device=derivs.device)
     D = derivs.index_select(-1, sel).reshape(nx, ny, nz, m, m, m)
 
+    def contract(spec, S, axis):
+        # the axis' derivative order and the corner s, in H's order
+        if S.is_cuda:
+            return torch.einsum(spec, H, S)
+        perm = (axis, 0) + tuple(a for a in range(1, S.dim()) if a != axis)
+        return _host_contract(H, S, 2, perm)
+
     Sx = torch.stack([D[0:ncx], D[1:ncx + 1]], dim=0)
-    T = torch.einsum("pms,sijkmno->pijkno", H, Sx)
+    T = contract("pms,sijkmno->pijkno", Sx, 4)
     Sy = torch.stack([T[:, :, 0:ncy], T[:, :, 1:ncy + 1]], dim=0)
-    T = torch.einsum("qns,spijkno->qpijko", H, Sy)
+    T = contract("qns,spijkno->qpijko", Sy, 5)
     Sz = torch.stack([T[:, :, :, :, 0:ncz], T[:, :, :, :, 1:ncz + 1]],
                      dim=0)
-    T = torch.einsum("ros,sqpijko->rqpijk", H, Sz)
+    T = contract("ros,sqpijko->rqpijk", Sz, 6)
     coeffs = T.permute(3, 4, 5, 2, 1, 0)   # [i, j, k, px, py, pz]
     return coeffs.reshape(ncx * ncy * ncz, H.shape[0] ** 3)
 
@@ -563,8 +607,10 @@ def _finish_multi(interp, grad_s, back_powers, spacing, scaling, pos,
         act = (a > 1e-10) & (bps != 0.0)
         one = torch.ones_like(a)
         a_safe = torch.where(act, a, one)
-        pf = torch.where(act, bps * a_safe ** (bps - 1.0), one)
-        interp = torch.where(act, sign * a_safe ** bps, interp)
+        pf = torch.where(act, bps * lanewise(torch.pow, a_safe, bps - 1.0),
+                         one)
+        interp = torch.where(act, sign * lanewise(torch.pow, a_safe, bps),
+                             interp)
         grad_s = grad_s * pf[..., None]
 
     grad_phys = grad_s / spacing                        # [..., N, G, 3]

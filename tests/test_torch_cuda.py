@@ -474,6 +474,110 @@ def test_sharded_k3_window_on_the_card_matches_one_rank(cuda):
         assert torch.equal(r["energy"], one.energy.cpu())
 
 
+def _k3_against_twin(table, x, s, *window):
+    """K3 and its twin on one case: K3's result, after gating it at
+    chip_smoke's tolerance of the dtype."""
+    gate = chip_smoke.PACKED_EVAL_GATE[str(x.dtype).rsplit(".", 1)[-1]]
+    got = cuda_packed_eval.packed_eval(table, x, s, *window)
+    ref = cuda_packed_eval.packed_eval_plain(table, x, s, *window)
+    torch.cuda.synchronize()
+    assert got[0].shape == x.shape[:-1] and got[1].shape == x.shape
+    assert bool(torch.isfinite(got[0]).all() and torch.isfinite(got[1]).all())
+    err = chip_smoke.packed_eval_errors(got, ref)
+    assert err["E_rel"] <= gate and err["F_rel"] <= gate, err
+    return got
+
+
+# atoms a replica and leading dims: a ragged last tile (115 atoms), fewer
+# atoms than one tile, one replica (R = 1 and no leading dim), many tiles
+K3_TILINGS = [(23, (5,)), (5, ()), (7, (1,)), (23, ()), (47, (40,))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("degree", chip_smoke.PACKED_EVAL_DEGREES)
+@pytest.mark.parametrize("n_atoms, lead", K3_TILINGS)
+def test_packed_eval_tiles(cuda, n_atoms, lead, degree, dtype):
+    """K3 against its twin where the atoms do not fill whole tiles, for
+    G = 1 to 4 (G = 4 takes the runtime grid loop); the atoms of
+    packed_eval_positions lie inside, on the box's faces and outside, so
+    a tile mixes atoms that read a row with atoms that read none."""
+    for n_grids in (1, 2, 3, 4):
+        table = chip_smoke.random_pack(11, degree, "chebyshev", n_grids,
+                                       dtype, cuda)
+        x = torch.as_tensor(chip_smoke.packed_eval_positions(
+            13, lead, n_atoms), dtype=dtype, device=cuda)
+        s = torch.as_tensor(chip_smoke.packed_eval_scaling(
+            17, n_grids, n_atoms), dtype=dtype, device=cuda)
+        _k3_against_twin(table, x, s)
+
+
+def test_packed_eval_tiles_outside_the_box(cuda):
+    """Tiles whose atoms all lie outside the box (no copy in flight) and
+    tiles that mix them with atoms inside: the restraint alone, or the
+    rows and the restraint, as the twin gives them."""
+    table, x, s = _k3_case(cuda, 6, "chebyshev", 3, torch.float32, (40,))
+    x[:20] += 5.0                          # whole tiles outside
+    x[20:30, ::2] -= 5.0                   # every other atom outside
+    got = _k3_against_twin(table, x, s)
+    assert bool((got[0][:20] > 0.0).all())  # the restraint's energy
+
+
+def test_packed_eval_float64_at_its_largest_tile(cuda, monkeypatch):
+    """Float64 d = 6 with 4 grids (6,912-byte rows, 6,976-byte slots) at
+    32 atoms a block: 223,248 bytes of shared memory, past the 48 KB a
+    launch gets without asking; then at the shipped tile again."""
+    monkeypatch.setattr(cuda_packed_eval, "TILE_ATOMS", 32)
+    plan = cuda_packed_eval.launch_plan(6, 4, torch.float64)
+    assert plan.tile_atoms == 32 and plan.shared_bytes == 223_248
+    table, x, s = _k3_case(cuda, 6, "chebyshev", 4, torch.float64, (9,))
+    _k3_against_twin(table, x, s)
+    monkeypatch.undo()
+    _k3_against_twin(table, x, s)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_packed_eval_slab_windows_in_tiles(cuda, dtype):
+    """The slab windows of 3 ranks over 40 replicas: each within the gate
+    of the twin's window, their sum equal to the whole bit for bit."""
+    table, x, s = _k3_case(cuda, 6, "chebyshev", 3, dtype, (40,))
+    ncx = chip_smoke.PACKED_EVAL_COUNTS[0] - 1
+    whole = _k3_against_twin(table, x, s)
+    slab = -(-ncx // 3)
+    parts = [_k3_against_twin(chip_smoke.slab_table(table, r * slab, slab),
+                              x, s, r * slab, slab, r == 0)
+             for r in range(3)]
+    for i in (0, 1):
+        assert torch.equal(sum(p[i] for p in parts), whole[i])
+
+
+def test_packed_eval_shared_scaling_reads_one_row(cuda):
+    """A [1, N] scaling (one row for every grid, read with a grid stride
+    of 0) gives what the same row repeated for every grid gives."""
+    table, x, s = _k3_case(cuda, 4, "monomial", 3, torch.float32, (6,))
+    row = s[:1]
+    one = cuda_packed_eval.packed_eval(table, x, row)
+    many = cuda_packed_eval.packed_eval(table, x, row.expand(3, -1))
+    assert torch.equal(one[0], many[0]) and torch.equal(one[1], many[1])
+    _k3_against_twin(table, x, row)
+
+
+@pytest.mark.parametrize("degree", chip_smoke.PACKED_EVAL_DEGREES)
+def test_packed_eval_recorded_call_equals_eager(cuda, degree):
+    """One K3 call recorded as a CUDA graph and replayed gives the eager
+    call's energies and forces bit for bit."""
+    table, x, s = _k3_case(cuda, degree, "chebyshev", 3, torch.float32,
+                           (40,))
+    eager = cuda_packed_eval.packed_eval(table, x, s)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        recorded = cuda_packed_eval.packed_eval(table, x, s)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(recorded[0], eager[0])
+    assert torch.equal(recorded[1], eager[1])
+
+
 # ----------------------------------------------------------------------
 # Recorded MD segments
 # ----------------------------------------------------------------------

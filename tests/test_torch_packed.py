@@ -1,6 +1,11 @@
 """Port packing and packed evaluation (openmmgridforce_tpu_torch.ops.packed)
 vs the JAX package at float64."""
 
+import os
+import subprocess
+import sys
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -10,6 +15,7 @@ from openmmgridforce_tpu.grid import Grid as JGrid
 from openmmgridforce_tpu.ops import packed as jpacked
 from openmmgridforce_tpu_torch import convert
 from openmmgridforce_tpu_torch.ops import packed
+from openmmgridforce_tpu_torch.ops.lanewise import lanewise
 
 torch.set_num_threads(1)
 
@@ -231,3 +237,75 @@ def test_pack_members_match_jax():
             c - 1 for c in COUNTS)
     for ref, got in (pairs[1], pairs[3]):
         assert got.num_grids == ref.num_grids == ref.n_grids
+
+
+# packs a B-spline grid and a triquintic grid (monomial, Chebyshev) at 1
+# and at 4 threads in one process; prints whether each pair is equal
+_THREADS_SCRIPT = """
+import numpy as np, torch
+from openmmgridforce_tpu_torch import convert
+from openmmgridforce_tpu_torch.ops import packed
+rng = np.random.default_rng(3)
+counts = (40, 42, 44)
+vals = rng.standard_normal(counts) * 50.0
+derivs = rng.standard_normal(counts + (27,)) * 50.0
+grids = [convert.grid_from_arrays(vals, (0.1,) * 3, (0.0,) * 3,
+                                  interp_method=m, derivs=d, device="cpu")
+         for m, d in ((1, None), (3, derivs))]
+out = []
+for g in grids:
+    for basis in ("monomial", "chebyshev"):
+        packs = []
+        for n in (1, 4):
+            torch.set_num_threads(n)
+            packs.append(packed.pack_grid(g, poly_basis=basis).coeffs)
+        out.append(torch.equal(*packs))
+print(out)
+"""
+
+
+def test_host_packing_does_not_depend_on_the_thread_count():
+    """A pack made on the host is the same bit for bit at 1 and at 4
+    threads, with MKL held to its AVX2 code (a CPU without AVX-512),
+    whose products of the packing contractions' shape sum in another
+    order with more threads: a rank of a mesh, which runs with its share
+    of the cores, packs what one process packs."""
+    root = Path(__file__).resolve().parents[1]
+    env = {**os.environ, "MKL_ENABLE_INSTRUCTIONS": "AVX2",
+           "PYTHONPATH": str(root)}
+    out = subprocess.run([sys.executable, "-c", _THREADS_SCRIPT], env=env,
+                         capture_output=True, text=True, timeout=300,
+                         check=True).stdout
+    assert out.strip().splitlines()[-1] == "[True, True, True, True]"
+
+
+def test_host_contraction_matches_einsum():
+    """The host's fixed-order axis contraction against torch.einsum, with
+    two contracted axes brought to the front."""
+    rng = np.random.default_rng(5)
+    H = torch.from_numpy(rng.standard_normal((6, 3, 2)))
+    S = torch.from_numpy(rng.standard_normal((2, 5, 4, 3, 2)))
+    want = torch.einsum("pms,sijmo->pijo", H, S)
+    got = packed._host_contract(H, S, 2, (3, 0, 1, 2, 4))
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-13,
+                               atol=1e-13)
+
+
+@pytest.mark.parametrize("fn", [torch.atan2, torch.pow])
+def test_lanewise_rounds_every_element_alike(fn):
+    """An element's value from ``lanewise`` is the same whatever the length
+    of the array and its place in it (ATen's vectorised loop and scalar
+    tail round some arguments differently)."""
+    rng = np.random.default_rng(9)
+    a = torch.from_numpy(rng.uniform(0.1, 3.0, 1000))
+    b = torch.from_numpy(rng.uniform(-2.0, 2.0, 1000))
+    whole = lanewise(fn, a, b)
+    for lo, hi in ((0, 1), (3, 50), (17, 1000), (990, 1000), (0, 999)):
+        assert torch.equal(lanewise(fn, a[lo:hi], b[lo:hi]), whole[lo:hi])
+    grid = lanewise(fn, a.reshape(40, 25), b[:25])
+    assert torch.equal(grid[7], lanewise(fn, a[175:200], b[:25]))
+    if fn is torch.pow:
+        # a number as the exponent, as a grid's back power is passed
+        assert torch.equal(lanewise(fn, a[3:50], 1.7),
+                           lanewise(fn, a, 1.7)[3:50])
+    np.testing.assert_allclose(whole.numpy(), fn(a, b).numpy(), rtol=1e-15)

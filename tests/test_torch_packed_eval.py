@@ -249,3 +249,90 @@ def test_kernel_source_and_library():
     assert "__global__" in text
     assert "packed_eval_kernel" in text
     assert cuda_packed_eval.DEGREES == chip_smoke.PACKED_EVAL_DEGREES
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("degree", cuda_packed_eval.DEGREES)
+def test_launch_plan_fits_shared_memory(degree, dtype):
+    """The kernel's tile for every degree and dtype and G = 1 to 8: whole
+    warps where 8 atoms fit, slots at least a row and 16-byte multiples,
+    64 bytes more where the row is a multiple of 128, and a block's shared
+    memory (slots and barrier) within the H100's 232,448 bytes; the
+    shipped tile for the fused packs of three grids."""
+    item = 8 if dtype == torch.float64 else 4
+    for n_grids in range(1, 9):
+        plan = cuda_packed_eval.launch_plan(degree, n_grids, dtype)
+        row = n_grids * degree ** 3 * item
+        assert plan.row_bytes == row
+        assert plan.slot_bytes == (row + 64 if row % 128 == 0 else row)
+        assert plan.slot_bytes % 16 == 0
+        assert plan.shared_bytes == plan.tile_atoms * plan.slot_bytes + 16
+        assert plan.shared_bytes <= 232_448
+        assert plan.threads == 4 * plan.tile_atoms <= 128
+        assert 1 <= plan.tile_atoms <= cuda_packed_eval.TILE_ATOMS
+        assert plan.tile_atoms % 8 == 0 or plan.tile_atoms < 8
+        assert plan.blocks(1000 * 47) == -(-47000 // plan.tile_atoms)
+    three = cuda_packed_eval.launch_plan(degree, 3, dtype)
+    assert three.tile_atoms == cuda_packed_eval.TILE_ATOMS
+
+
+def test_launch_plan_shrinks_and_refuses():
+    """Rows too wide for the shipped tile take fewer atoms a block, down
+    to one; a row wider than a block's shared memory is refused."""
+    plan = cuda_packed_eval.launch_plan(6, 20, torch.float64)  # 34,560 B
+    assert plan.tile_atoms == 6 and plan.shared_bytes <= 232_448
+    plan = cuda_packed_eval.launch_plan(6, 134, torch.float64)
+    assert plan.tile_atoms == 1 and plan.shared_bytes <= 232_448
+    with pytest.raises(ValueError, match="shared memory"):
+        cuda_packed_eval.launch_plan(6, 135, torch.float64)
+
+
+@pytest.mark.parametrize("n_atoms, replicas", [(47, 1000), (23, 5), (3, 1),
+                                               (1, 7)])
+def test_atom_order_is_atom_major(n_atoms, replicas):
+    """The kernel's atom-major launch order (its kAtomMajor switch)
+    against a plain enumeration: every atom once, the replicas of each
+    ligand atom side by side in replica order."""
+    got = cuda_packed_eval.atom_order(n_atoms * replicas, n_atoms)
+    want = [r * n_atoms + n for n in range(n_atoms)
+            for r in range(replicas)]
+    assert got.tolist() == want
+    assert sorted(got.tolist()) == list(range(n_atoms * replicas))
+
+
+def test_wrapper_refusals_before_the_launch(monkeypatch):
+    """What the wrapper refuses of a table before any library loads: a
+    row wider than a block's shared memory, back powers that do not
+    match the grids, spacing of another dtype."""
+    monkeypatch.setattr(cuda_packed_eval, "_library",
+                        lambda: pytest.fail("loaded the kernel's library"))
+    _, tm = _packs("BSPLINE", "monomial")
+    x, s = _inputs((REPLICAS,))
+    xt, st = torch.from_numpy(x), torch.from_numpy(s)
+    window = (0, COUNTS[0] - 1, True)
+    wide = dataclasses.replace(
+        tm, degree=6, n_grids=135, back_powers=(0.0,) * 135,
+        coeffs=torch.zeros((tm.coeffs.shape[0], 135 * 216),
+                           dtype=torch.float64))
+    with pytest.raises(ValueError, match="shared memory"):
+        cuda_packed_eval._launch(wide, xt, st, *window)
+    short = dataclasses.replace(tm, back_powers=(0.0,))
+    with pytest.raises(ValueError, match="back powers"):
+        cuda_packed_eval._launch(short, xt, st, *window)
+    mixed = dataclasses.replace(tm, spacing=tm.spacing.float())
+    with pytest.raises(ValueError, match="spacing must be"):
+        cuda_packed_eval._launch(mixed, xt, st, *window)
+
+
+def test_registers_of_each_instantiation_from_the_build_log():
+    """chip_smoke's names of K3's instantiations from ptxas' mangled
+    entry functions: the shipped kernel's (degree, basis, type, grids) and
+    the first design's (no grids)."""
+    name = chip_smoke.packed_eval_instance
+    assert name("_ZN12_GLOBAL__N_118packed_eval_kernelILi6ELb1EfLi3EEEvPKT1_"
+                ) == "d6 chebyshev float32 G3"
+    assert name("_ZN12_GLOBAL__N_118packed_eval_kernelILi2ELb0EdLi0EEEvPKT1_"
+                ) == "d2 monomial float64 G0"
+    assert name("_ZN12_GLOBAL__N_118packed_eval_kernelILi4ELb0EfEEvPKT1_"
+                ) == "d4 monomial float32"
+    assert name("_ZN3abc21gridgen_derivs_kernelILi0EEEvPK6float4") is None

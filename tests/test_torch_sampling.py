@@ -368,6 +368,28 @@ def test_sampler_mesh_matches_one_process(mesh_samplers, name):
             assert torch.equal(rank[key], one[key])
 
 
+def test_sampler_mesh_matches_one_process_on_avx2(monkeypatch):
+    """The dp = 3 ladder against one process, each in processes of their
+    own with MKL held to its AVX2 code (a CPU without AVX-512) and the
+    ranks on a third of the cores, bit for bit: neither the pack (its
+    products sum by the thread count there) nor the torsions' atan2
+    (ATen's vectorised loop and scalar tail round apart) depend on how
+    many rungs a process holds or on its threads."""
+    monkeypatch.setenv("MKL_ENABLE_INSTRUCTIONS", "AVX2")
+    (one,) = distributed.launch(sampler_worker, 1,
+                                (None, MESH_STATES, MESH_TRIALS),
+                                device="cpu")
+    ranks = distributed.launch(sampler_worker, 3,
+                               ((3,), MESH_STATES, MESH_TRIALS),
+                               device="cpu")
+    for rank in ranks:
+        assert rank["counts"] == one["counts"]
+        assert rank["n_redrawn"] == one["n_redrawn"]
+        np.testing.assert_array_equal(rank["energies"], one["energies"])
+        for key in ("positions", "velocities"):
+            assert torch.equal(rank[key], one[key])
+
+
 def _load_example():
     spec = importlib.util.spec_from_file_location(
         "bpmf_sampler_torch", ROOT / "examples" / "bpmf_sampler_torch.py")
