@@ -1,0 +1,8 @@
+"""replica_steps_per_s: the replica-steps of every segment the window
+completed over the window's wall time, which ends with the last segment's
+host check (a download, so the card has finished)."""
+
+
+def read(run):
+    w = run.window
+    return w["units"] / w["seconds"] if run.mix["kind"] == "md" else None
