@@ -1,0 +1,12 @@
+"""term_ms.grid: device ms a step of the grid term (the fused table's
+evaluation by K3, and its sums): the replayed CUDA-graph nodes that the
+program's span ``omgf.force.grid`` issued, innermost, when their block was
+captured, summed over the traced MD window's replays and divided by its
+steps (gfbench.spans.term_ms). None where the replays' operations do not
+align one to one with their blocks' nodes."""
+
+from gfbench import spans
+
+
+def read(run):
+    return spans.term_ms(run, "omgf.force.grid")

@@ -21,10 +21,15 @@
 //   3. omgf_set_condition: the last operation of the body, a one-thread
 //      kernel that copies a device bool into the handle;
 //   4. omgf_capture_end: end the body's capture.
+// Beside them, omgf_capture_nodes counts the device nodes of the graph
+// being captured, for the spans that split a recorded block into its
+// terms (utils/observe.py).
 // Every function returns the CUDA error code (0 on success); -1 means the
 // stream was not capturing.
 
 #include <cuda_runtime.h>
+
+#include <vector>
 
 namespace {
 
@@ -93,6 +98,48 @@ int omgf_capture_end(void* stream) {
   cudaGraph_t graph;
   return static_cast<int>(
       cudaStreamEndCapture(static_cast<cudaStream_t>(stream), &graph));
+}
+
+// The device nodes (kernels, copies and fills: the nodes whose replays a
+// trace shows as operations) of the graph being captured on ``stream`` so
+// far, in *count. Returns -2 where the graph holds a child graph or a
+// conditional node, whose operations a count of its own nodes misses.
+int omgf_capture_nodes(void* stream, unsigned long long* count) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaStreamCaptureStatus status;
+  cudaGraph_t graph;
+  cudaError_t err = cudaStreamGetCaptureInfo(s, &status, nullptr, &graph,
+                                             nullptr, nullptr);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (status != cudaStreamCaptureStatusActive) return -1;
+  size_t n = 0;
+  err = cudaGraphGetNodes(graph, nullptr, &n);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  std::vector<cudaGraphNode_t> nodes(n);
+  if (n) {
+    err = cudaGraphGetNodes(graph, nodes.data(), &n);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  unsigned long long device = 0;
+  for (size_t i = 0; i < n; ++i) {
+    cudaGraphNodeType type;
+    err = cudaGraphNodeGetType(nodes[i], &type);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    switch (type) {
+      case cudaGraphNodeTypeKernel:
+      case cudaGraphNodeTypeMemcpy:
+      case cudaGraphNodeTypeMemset:
+        ++device;
+        break;
+      case cudaGraphNodeTypeGraph:
+      case cudaGraphNodeTypeConditional:
+        return -2;
+      default:
+        break;
+    }
+  }
+  *count = device;
+  return 0;
 }
 
 }  // extern "C"

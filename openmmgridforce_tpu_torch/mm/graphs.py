@@ -15,6 +15,13 @@ Inside a recording a loop that must stop on the device (the constraint
 solver's) calls :func:`while_loop`: a conditional WHILE node of the graph
 (``csrc/graph_while.cu``, built by ``cuda_build``) while capturing, and a
 host loop over the same operations while the block warms up.
+
+Spans (``utils/observe.py``): ``omgf.segment.record`` around a recording,
+``omgf.step.integrate`` around each step and the carry's write-back inside
+a block, and, while a profiler session runs, ``omgf.replay.<serial>``
+around each replay. A capture keeps the device nodes each span issued
+(``utils.observe.recorded_spans``), so a reader of a trace can split the
+replays' operations into the spans' terms.
 """
 
 from __future__ import annotations
@@ -25,10 +32,13 @@ import ctypes
 import functools
 import gc
 import inspect
+import itertools
 import time
 import weakref
 
 import torch
+
+from ..utils import observe
 
 # steps a recorded block holds: the unroll of the JAX package's scan
 BLOCK = 4
@@ -50,6 +60,11 @@ _FAILED = []
 
 # recorded blocks that hold conditional WHILE nodes
 _WHILE_BLOCKS = weakref.WeakSet()
+
+# recorded blocks alive, by the serial number their replays' spans carry
+# (utils.observe.recorded_spans reads their spans)
+_BLOCKS = weakref.WeakValueDictionary()
+_SERIALS = itertools.count()
 
 
 def recording() -> bool:
@@ -94,11 +109,11 @@ def takes_noise(step_fn) -> bool:
 
 
 # ----------------------------------------------------------------------
-# Conditional WHILE nodes (csrc/graph_while.cu)
+# Conditional WHILE nodes and node counts (csrc/graph_while.cu)
 # ----------------------------------------------------------------------
 
 @functools.cache
-def _while_lib():
+def _graph_lib():
     from ..cuda_build import load
 
     lib = load("graph_while")
@@ -109,9 +124,10 @@ def _while_lib():
     lib.omgf_capture_to_graph_begin.argtypes = [vp, vp]
     lib.omgf_set_condition.argtypes = [vp, ull, vp]
     lib.omgf_capture_end.argtypes = [vp]
+    lib.omgf_capture_nodes.argtypes = [vp, ctypes.POINTER(ull)]
     for fn in (lib.omgf_graph_init, lib.omgf_while_begin,
                lib.omgf_capture_to_graph_begin, lib.omgf_set_condition,
-               lib.omgf_capture_end):
+               lib.omgf_capture_end, lib.omgf_capture_nodes):
         fn.restype = ctypes.c_int
     _check(lib.omgf_graph_init(), "loading the condition kernel")
     return lib
@@ -136,7 +152,7 @@ def _while_node(body):
     written into the node's handle at the end of every pass."""
     block = _RECORDING.get()
     _WHILE_BLOCKS.add(block)
-    lib = _while_lib()
+    lib = _graph_lib()
     stream = torch.cuda.current_stream()
     device = stream.device
     handle, body_graph = ctypes.c_ulonglong(), ctypes.c_void_p()
@@ -162,6 +178,33 @@ def _while_node(body):
     finally:
         torch._C._cuda_endAllocateToPool(device.index, pool)
         torch._C._cuda_releasePool(device.index, pool)   # the body's ref
+
+
+def _node_counter(block, stream):
+    """A function that counts the device nodes (kernels, copies, fills)
+    of ``block``'s graph being captured on ``stream`` so far, or returns
+    -1 where they cannot be counted: once the graph holds a WHILE node
+    (whose body a count of the graph's own nodes misses; the graph is not
+    asked again), or where the count fails. A count never fails the
+    capture."""
+    lib, n = _graph_lib(), ctypes.c_ulonglong()
+
+    def count():
+        if block in _WHILE_BLOCKS:
+            return -1
+        if lib.omgf_capture_nodes(stream.cuda_stream, ctypes.byref(n)):
+            return -1
+        return n.value
+
+    return count
+
+
+def _node_spans(total, spans):
+    """(device nodes, spans) of a capture, or None where a count failed."""
+    if total < 0 or any(first < 0 or n is None or n < 0
+                        for _, first, n in spans):
+        return None
+    return total, tuple(tuple(entry) for entry in spans)
 
 
 def while_loop(body):
@@ -191,6 +234,11 @@ class _Block:
         self.length = length
         self.graph = None
         self._body_pool = None
+        self.serial = next(_SERIALS)
+        self.replay_span = f"omgf.replay.{self.serial}"
+        # (device nodes, ((span, first node, nodes), ...)) of the
+        # recording, or None where they cannot be counted
+        self.nodes = None
 
     def body_pool(self, device):
         """The memory pool of the block's while bodies (the capture's own
@@ -210,19 +258,28 @@ class _Block:
     def body(self, seg, steps=None):
         carry = seg.carry
         for u in range(self.length if steps is None else steps):
-            carry = seg.advance(carry, None if seg.noise is None
-                                else seg.noise[u])
-            if seg.frames is not None:
-                seg.frames[u].copy_(carry[0])
-        for buf, new in zip(seg.carry, carry):
-            if new is not buf:
-                buf.copy_(new)
+            with observe.trace("omgf.step.integrate"):
+                carry = seg.advance(carry, None if seg.noise is None
+                                    else seg.noise[u])
+                if seg.frames is not None:
+                    seg.frames[u].copy_(carry[0])
+        with observe.trace("omgf.step.integrate"):
+            for buf, new in zip(seg.carry, carry):
+                if new is not buf:
+                    buf.copy_(new)
 
     def record(self, seg):
         """Run one step of the block as it is (which loads every kernel the
         block launches and fills the caches its steps read), then capture
-        the block on a side stream."""
+        the block on a side stream, counting the device nodes each span
+        issues."""
         t0 = time.perf_counter()
+        with observe.trace("omgf.segment.record"):
+            self._record(seg)
+        RECORDINGS["count"] += 1
+        RECORDINGS["seconds"] += time.perf_counter() - t0
+
+    def _record(self, seg):
         token = _RECORDING.set("warmup")
         try:
             self.body(seg, steps=1)
@@ -233,12 +290,15 @@ class _Block:
             graph.register_generator_state(gen)
         stream = torch.cuda.Stream()
         stream.wait_stream(torch.cuda.current_stream())
+        count = _node_counter(self, stream)
         token = _RECORDING.set(self)
         try:
             with torch.cuda.stream(stream):
                 graph.capture_begin()
                 try:
-                    self.body(seg)
+                    with observe.node_spans(count) as spans:
+                        self.body(seg)
+                    total = count()
                 except BaseException:
                     _FAILED.append(graph)
                     try:
@@ -251,12 +311,14 @@ class _Block:
             _RECORDING.reset(token)
         torch.cuda.current_stream().wait_stream(stream)
         self.graph = graph
-        RECORDINGS["count"] += 1
-        RECORDINGS["seconds"] += time.perf_counter() - t0
+        self.nodes = (None if self in _WHILE_BLOCKS
+                      else _node_spans(total, spans))
+        _BLOCKS[self.serial] = self
 
     def play(self, seg):
         if self.graph is not None and not _EAGER.get():
-            self.graph.replay()
+            with observe.trace(self.replay_span):
+                self.graph.replay()
         else:
             self.body(seg)
 

@@ -23,6 +23,7 @@ from ..ops.packed import (HermitePackedGrid, MultiHermitePackedGrid,
                           evaluate_hermite_multi, evaluate_hermite_packed,
                           evaluate_multi, evaluate_packed)
 from ..ops.pairwise import PairTable, build_pair_table, pair_energy_forces
+from ..utils.observe import trace
 from . import graphs
 from .amber import AmberTopology
 from .constraints import ConstraintSet, constraints_from_bonds
@@ -203,16 +204,21 @@ def energy_and_forces(system: System, grids: Sequence[GridBinding],
                       positions):
     """Total energy [...] and forces [..., N, 3], all in closed form. A
     sharded table (``parallel/sharded_grid.py``) among the grids makes
-    this a collective over its mesh axis."""
-    energy, forces = bonded_energy_forces(positions, system)
+    this a collective over its mesh axis. Each term is a span
+    (``omgf.force.bonded``, ``.pair``, ``.grid``) that takes in the sum of
+    its share into the totals."""
+    with trace("omgf.force.bonded"):
+        energy, forces = bonded_energy_forces(positions, system)
     if system.pairs is not None:
-        e_p, f_p = pair_energy_forces(system.pairs, positions)
-        energy = energy + e_p
-        forces = forces + f_p
+        with trace("omgf.force.pair"):
+            e_p, f_p = pair_energy_forces(system.pairs, positions)
+            energy = energy + e_p
+            forces = forces + f_p
     for gb in grids:
-        res = _eval_grid(gb.grid, positions, gb.scaling)
-        energy = energy + res.energy
-        forces = forces + res.forces
+        with trace("omgf.force.grid"):
+            res = _eval_grid(gb.grid, positions, gb.scaling)
+            energy = energy + res.energy
+            forces = forces + res.forces
     return energy, forces
 
 
@@ -279,11 +285,15 @@ def make_md_runner(n_steps: int, dt: float, friction: float,
     replays. A sharded table whose all-reduce goes through the host
     (gloo over more than one rank) cannot be recorded: its segments run
     their blocks as eager launches (``graphs.eager()``). On the CPU it is
-    the plain loop of steps.
+    the plain loop of steps. Each call is the span ``omgf.segment``.
     """
     device = resolve_device(device)
 
     def run(states, system, grids, temperatures, noise=None):
+        with trace("omgf.segment"):
+            return _run(states, system, grids, temperatures, noise)
+
+    def _run(states, system, grids, temperatures, noise):
         x = states.positions
         if x.device != device:
             raise ValueError(f"states are on {x.device}, the runner on "

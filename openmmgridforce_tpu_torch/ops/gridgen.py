@@ -34,6 +34,7 @@ import torch
 from ..device import resolve_device
 from ..grid import Grid, InterpolationMethod, InvPowerMode
 from ..units import DEFAULT_GRID_CAP, DEFAULT_OOB_K, TWO_POW_ONE_SIXTH
+from ..utils.observe import trace
 from . import radial
 from .chain_rules import apply_invpower, apply_tanh_cap, tanh_cap_value
 from .cuda_gridgen import grid_point_positions, gridgen_values  # noqa: F401
@@ -60,17 +61,21 @@ def _postprocess_raw_derivs(raw, *, grid_cap, inv_power, inv_power_mode,
                             spacing, point_chunk: int = _POST_POINT_CHUNK):
     """Cap, transform and scale raw 27-derivative sums [..., 27]: the
     per-point tail of derivative generation. Runs in chunks of points so
-    the Faa di Bruno temporaries stay small beside a full grid."""
-    scale = torch.as_tensor(spacing_scale_factors(spacing), dtype=raw.dtype,
-                            device=raw.device)
-    flat = raw.reshape(-1, raw.shape[-1])
-    out = torch.empty_like(flat)
-    for lo in range(0, flat.shape[0], point_chunk):
-        V = apply_tanh_cap(flat[lo:lo + point_chunk], grid_cap)
-        if inv_power != 0.0 and inv_power_mode == InvPowerMode.STORED:
-            V = apply_invpower(V, 1.0 / inv_power)
-        out[lo:lo + point_chunk] = V * scale
-    return out.reshape(raw.shape)
+    the Faa di Bruno temporaries stay small beside a full grid. The
+    chain rules are the span ``omgf.gridgen.chain_rules``; the upload of
+    the scale factors before them, which waits for the card, is its own."""
+    with trace("omgf.sync.derivative_scale"):
+        scale = torch.as_tensor(spacing_scale_factors(spacing),
+                                dtype=raw.dtype, device=raw.device)
+    with trace("omgf.gridgen.chain_rules"):
+        flat = raw.reshape(-1, raw.shape[-1])
+        out = torch.empty_like(flat)
+        for lo in range(0, flat.shape[0], point_chunk):
+            V = apply_tanh_cap(flat[lo:lo + point_chunk], grid_cap)
+            if inv_power != 0.0 and inv_power_mode == InvPowerMode.STORED:
+                V = apply_invpower(V, 1.0 / inv_power)
+            out[lo:lo + point_chunk] = V * scale
+        return out.reshape(raw.shape)
 
 
 def _store_transform(vals, inv_power, inv_power_mode):
@@ -117,9 +122,10 @@ def _device_memory_budget(device):
     device = torch.device(device)
     if device.type != "cuda":
         return None
-    free, _ = torch.cuda.mem_get_info(device)
-    cached = (torch.cuda.memory_reserved(device)
-              - torch.cuda.memory_allocated(device))
+    with trace("omgf.sync.memory_guard"):
+        free, _ = torch.cuda.mem_get_info(device)
+        cached = (torch.cuda.memory_reserved(device)
+                  - torch.cuda.memory_allocated(device))
     return int(0.8 * (free + cached))
 
 
@@ -147,9 +153,11 @@ def receptor_atoms(grid_type, positions, charges, sigmas, epsilons,
     pos = np.asarray(positions, np.float64).reshape(-1, 3)
     K = radial.field_strength(grid_type, charges, sigmas, epsilons,
                               lj_convention)
-    return torch.as_tensor(np.concatenate([pos, K[:, None]], axis=1),
-                           dtype=dtype,
-                           device=resolve_device(device)).contiguous()
+    table = np.concatenate([pos, K[:, None]], axis=1)
+    device = resolve_device(device)
+    with trace("omgf.sync.atoms"):
+        return torch.as_tensor(table, dtype=dtype,
+                               device=device).contiguous()
 
 
 def generate_grid(counts,
@@ -184,40 +192,48 @@ def generate_grid(counts,
     ``ValueError`` before anything is allocated or launched; such grids
     go through :func:`generate_grid_to_tiled_file` and
     ``io.streaming.StreamedGridEvaluator``.
+
+    The call is the span ``omgf.gridgen``; the chain rules of derivative
+    grids the span ``omgf.gridgen.chain_rules``, and each upload that
+    waits for the card an ``omgf.sync`` span.
     """
-    _check_dtype(dtype)
-    device = resolve_device(device)
-    counts = tuple(int(c) for c in counts)
-    _check_grid_fits(int(np.prod(counts)), compute_derivatives,
-                     torch.empty((), dtype=dtype).element_size(), device)
-    # the per-atom strength K carries the LJ convention, so one atom table
-    # serves both conventions on either route
-    atoms = receptor_atoms(grid_type, receptor_positions, charges, sigmas,
-                           epsilons, lj_convention, dtype, device)
-    derivs = None
-    if compute_derivatives:
-        raw = gridgen_derivs(atoms, counts, spacing, origin, grid_type)
-        derivs = _postprocess_raw_derivs(
-            raw, grid_cap=grid_cap, inv_power=inv_power,
-            inv_power_mode=inv_power_mode, spacing=spacing)
-        vals = derivs[..., 0]
-    else:
-        vals = _store_transform(
-            gridgen_values(atoms, counts, spacing, origin, grid_type,
-                           grid_cap), inv_power, inv_power_mode)
-    return Grid(
-        vals=vals,
-        derivs=derivs,
-        spacing=torch.tensor(spacing, dtype=dtype, device=device),
-        origin=torch.tensor(origin, dtype=dtype, device=device),
-        counts=counts,
-        interp_method=int(interp_method),
-        inv_power_mode=int(inv_power_mode),
-        inv_power=float(inv_power),
-        grid_cap=float(grid_cap),
-        oob_k=float(oob_k),
-        grid_type=grid_type,
-    )
+    with trace("omgf.gridgen"):
+        _check_dtype(dtype)
+        device = resolve_device(device)
+        counts = tuple(int(c) for c in counts)
+        _check_grid_fits(int(np.prod(counts)), compute_derivatives,
+                         torch.empty((), dtype=dtype).element_size(), device)
+        # the per-atom strength K carries the LJ convention, so one atom table
+        # serves both conventions on either route
+        atoms = receptor_atoms(grid_type, receptor_positions, charges, sigmas,
+                               epsilons, lj_convention, dtype, device)
+        derivs = None
+        if compute_derivatives:
+            raw = gridgen_derivs(atoms, counts, spacing, origin, grid_type)
+            derivs = _postprocess_raw_derivs(
+                raw, grid_cap=grid_cap, inv_power=inv_power,
+                inv_power_mode=inv_power_mode, spacing=spacing)
+            vals = derivs[..., 0]
+        else:
+            vals = _store_transform(
+                gridgen_values(atoms, counts, spacing, origin, grid_type,
+                               grid_cap), inv_power, inv_power_mode)
+        with trace("omgf.sync.grid_geometry"):
+            spacing = torch.tensor(spacing, dtype=dtype, device=device)
+            origin = torch.tensor(origin, dtype=dtype, device=device)
+        return Grid(
+            vals=vals,
+            derivs=derivs,
+            spacing=spacing,
+            origin=origin,
+            counts=counts,
+            interp_method=int(interp_method),
+            inv_power_mode=int(inv_power_mode),
+            inv_power=float(inv_power),
+            grid_cap=float(grid_cap),
+            oob_k=float(oob_k),
+            grid_type=grid_type,
+        )
 
 
 def auto_scaling_factors(grid_type: str, charges, sigmas, epsilons,

@@ -37,6 +37,7 @@ import torch
 
 from ..device import resolve_device
 from ..grid import Grid, InterpolationMethod
+from ..utils.observe import trace
 from . import basis
 from .chain_rules import apply_invpower, invpower_value
 from .cuda_packed_eval import packed_eval
@@ -269,8 +270,9 @@ def _pack_values_padded(P, method, runtime_inv, inv_power, ncells):
     """Per-cell coefficients [ncx * ncy * ncz, K] of the cells ``ncells``
     from value planes that carry their stencil (``_value_planes``)."""
     ncx, ncy, ncz = ncells
-    C = torch.as_tensor(_value_axis_matrix(method), dtype=P.dtype,
-                        device=P.device)
+    with trace("omgf.sync.value_basis"):
+        C = torch.as_tensor(_value_axis_matrix(method), dtype=P.dtype,
+                            device=P.device)
     if runtime_inv:
         # fold the stencil transform into packing
         P = invpower_value(P, 1.0 / inv_power)
@@ -295,16 +297,17 @@ def _pack_derivs(derivs, method, runtime_inv, inv_power, counts, out_basis):
     the Hermite axis matrix in the chosen basis."""
     nx, ny, nz = counts
     ncx, ncy, ncz = nx - 1, ny - 1, nz - 1
-    H = torch.as_tensor(_hermite_axis_matrix(method)
-                        if out_basis == "monomial"
-                        else _hermite_axis_matrix_cheb(method),
-                        dtype=derivs.dtype, device=derivs.device)
-    m = H.shape[1]  # 2 (tricubic) or 3 (triquintic)
+    with trace("omgf.sync.hermite_basis"):
+        H = torch.as_tensor(_hermite_axis_matrix(method)
+                            if out_basis == "monomial"
+                            else _hermite_axis_matrix_cheb(method),
+                            dtype=derivs.dtype, device=derivs.device)
+        m = H.shape[1]  # 2 (tricubic) or 3 (triquintic)
+        # reindex [.., 27] -> [.., mx, my, mz], restricted to orders < m
+        sel = torch.as_tensor(_D27_TO_M3[:m, :m, :m].reshape(-1),
+                              device=derivs.device)
     if runtime_inv:
         derivs = apply_invpower(derivs, 1.0 / inv_power)
-    # reindex [.., 27] -> [.., mx, my, mz], restricted to orders < m
-    sel = torch.as_tensor(_D27_TO_M3[:m, :m, :m].reshape(-1),
-                          device=derivs.device)
     D = derivs.index_select(-1, sel).reshape(nx, ny, nz, m, m, m)
 
     def contract(spec, S, axis):
@@ -407,25 +410,26 @@ def pack_grid(grid: Grid, dtype=None, x_chunk: int | None = None,
     (default: the grid's dtype). Hermite-method packs contract in
     ``dtype``: with the fused basis-to-Chebyshev axis matrices every
     intermediate is a bounded Chebyshev coefficient, so float32 needs no
-    float64 detour.
+    float64 detour. The call is the span ``omgf.pack``.
     """
     dtype = dtype or grid.vals.dtype
     method = int(grid.interp_method)
     poly_basis = poly_basis or _default_basis(method, dtype)
     if poly_basis not in ("monomial", "chebyshev"):
         raise ValueError(f"unknown poly_basis {poly_basis!r}")
-    coeffs = _pack_table([grid], dtype, poly_basis, x_chunk,
-                         grid.vals.device)
-    return PackedGrid(
-        coeffs=coeffs.contiguous(),
-        spacing=grid.spacing.to(dtype),
-        origin=grid.origin.to(dtype),
-        counts=grid.counts,
-        degree=_DEGREES[method],
-        back_power=grid_back_power(grid),
-        oob_k=grid.oob_k,
-        poly_basis=poly_basis,
-    )
+    with trace("omgf.pack"):
+        coeffs = _pack_table([grid], dtype, poly_basis, x_chunk,
+                             grid.vals.device)
+        return PackedGrid(
+            coeffs=coeffs.contiguous(),
+            spacing=grid.spacing.to(dtype),
+            origin=grid.origin.to(dtype),
+            counts=grid.counts,
+            degree=_DEGREES[method],
+            back_power=grid_back_power(grid),
+            oob_k=grid.oob_k,
+            poly_basis=poly_basis,
+        )
 
 
 # ----------------------------------------------------------------------
@@ -530,8 +534,10 @@ def _check_fusable(packs, fields):
     for p in packs[1:]:
         if any(getattr(p, k) != getattr(first, k) for k in fields):
             raise ValueError(f"grids must share {'/'.join(fields)} to fuse")
-        if not (torch.allclose(p.spacing, first.spacing)
-                and torch.allclose(p.origin, first.origin)):
+        with trace("omgf.sync.fusable"):
+            fusable = (torch.allclose(p.spacing, first.spacing)
+                       and torch.allclose(p.origin, first.origin))
+        if not fusable:
             raise ValueError("grids must be co-located (same spacing and "
                              "origin) to fuse — evaluation would use the "
                              "first grid's geometry for all")
@@ -539,11 +545,14 @@ def _check_fusable(packs, fields):
 
 def combine_packed_grids(packed_grids) -> MultiPackedGrid:
     """Fuse PackedGrids with identical geometry, degree and basis into one
-    table [ncells, G*K]."""
-    _check_fusable(packed_grids, ("counts", "degree", "oob_k", "poly_basis"))
+    table [ncells, G*K]. The call is the span ``omgf.pack``."""
+    with trace("omgf.pack"):
+        _check_fusable(packed_grids,
+                       ("counts", "degree", "oob_k", "poly_basis"))
+        coeffs = torch.cat([p.coeffs for p in packed_grids], dim=1)
     first = packed_grids[0]
     return MultiPackedGrid(
-        coeffs=torch.cat([p.coeffs for p in packed_grids], dim=1),
+        coeffs=coeffs,
         spacing=first.spacing,
         origin=first.origin,
         counts=first.counts,

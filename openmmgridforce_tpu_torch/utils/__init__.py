@@ -2,9 +2,9 @@
 compilation cache) has no counterpart here."""
 
 from .checkpoint import load_pytree, load_sampler, save_pytree, save_sampler
-from .observe import (StateDataReporter, Timer, capture_trace, trace,
+from .observe import (StateDataReporter, capture_trace, trace,
                       write_xyz_frame)
 
-__all__ = ["StateDataReporter", "Timer", "capture_trace", "load_pytree",
+__all__ = ["StateDataReporter", "capture_trace", "load_pytree",
            "load_sampler", "save_pytree", "save_sampler", "trace",
            "write_xyz_frame"]

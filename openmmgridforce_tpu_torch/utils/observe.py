@@ -1,26 +1,102 @@
-"""Observability: profiling scopes, trajectory reporters, timers.
+"""Observability: the program's spans, trace capture, trajectory
+reporters.
 
 ``trace`` and ``capture_trace`` sit on ``torch.profiler``; the reporters
 write the columns of the OpenMM StateDataReporter that the reference
 sampler used, and xyz frames like its trajectory dumps.
+
+Spans are named ``omgf.<layer>[.<stage>]`` (README, "Observability"). A
+span costs a flag check when no profiler session runs and no block is
+being captured (about 0.2 us of host time on the card's host): no
+``RecordFunction`` is made. While ``mm/graphs.py``
+captures a block, each span also keeps the range of the capture's device
+nodes it issued, so a trace of the block's replays splits into the spans'
+terms (``recorded_spans``).
 """
 
 from __future__ import annotations
 
 import contextlib
+import contextvars
 import os
-import time
 import warnings
 
 import numpy as np
 import torch
+from torch.autograd import profiler as _profiler
+
+# while mm/graphs.py captures a block: the block's list of [span, first
+# device node, device nodes] entries and the function that counts the
+# capture's device nodes so far
+_CAPTURE = contextvars.ContextVar("omgf_capture", default=None)
+
+_OFF = contextlib.nullcontext()
+
+
+class _Span:
+    __slots__ = ("name", "_range", "_entry", "_count")
+
+    def __init__(self, name):
+        self.name = name
+
+    def __enter__(self):
+        self._range = self._entry = None
+        capture = _CAPTURE.get()
+        if capture is not None:
+            spans, self._count = capture
+            self._entry = [self.name, self._count(), None]
+            spans.append(self._entry)
+        if _profiler._is_profiler_enabled:
+            self._range = torch.profiler.record_function(self.name)
+            self._range.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        if self._range is not None:
+            self._range.__exit__(*exc)
+        if self._entry is not None:
+            self._entry[2] = self._count() - self._entry[1]
+        return False
+
+
+def trace(name: str):
+    """The program's span ``name`` around the body of a ``with``: a range
+    in the profiler's timeline (``capture_trace``) while a session runs,
+    and while a block is captured the range of its device nodes.
+    Otherwise a shared no-op, after a check of those two states."""
+    if not _profiler._is_profiler_enabled and _CAPTURE.get() is None:
+        return _OFF
+    return _Span(name)
 
 
 @contextlib.contextmanager
-def trace(name: str):
-    """Named profiler scope (a range in ``capture_trace``'s timeline)."""
-    with torch.profiler.record_function(name):
-        yield
+def node_spans(count):
+    """Inside, every span keeps ``[name, first node, nodes]`` in the list
+    this yields, in the order the spans were entered: ``count()`` gives
+    the device nodes captured so far (``mm/graphs.py`` captures a block
+    inside)."""
+    spans = []
+    token = _CAPTURE.set((spans, count))
+    try:
+        yield spans
+    finally:
+        _CAPTURE.reset(token)
+
+
+def recorded_spans() -> dict:
+    """The spans of every recorded segment block alive, by the serial
+    number its replays carry (the span ``omgf.replay.<serial>`` around
+    each replay while a profiler session runs):
+    ``{serial: (device nodes, ((span, first node, nodes), ...))}``, the
+    spans in the order they were entered, so an inner span follows the
+    span it is nested in. A block's device nodes are its kernels, copies
+    and fills, in the order a replay runs them. A block whose nodes
+    cannot be counted so (one that holds a conditional WHILE node: the
+    constraint solver's) maps to None."""
+    from ..mm import graphs
+
+    return {serial: blk.nodes for serial, blk in list(graphs._BLOCKS.items())
+            if blk.graph is not None}
 
 
 @contextlib.contextmanager
@@ -48,29 +124,6 @@ def capture_trace(log_dir: str):
     with torch.profiler.profile(activities=acts) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
-
-
-class Timer:
-    """Wall-clock section timer with named accumulators."""
-
-    def __init__(self):
-        self.totals = {}
-        self.counts = {}
-
-    @contextlib.contextmanager
-    def section(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            dt = time.perf_counter() - t0
-            self.totals[name] = self.totals.get(name, 0.0) + dt
-            self.counts[name] = self.counts.get(name, 0) + 1
-
-    def summary(self) -> str:
-        return " | ".join(
-            f"{k}: {v:.3f}s/{self.counts[k]}x"
-            for k, v in sorted(self.totals.items()))
 
 
 class StateDataReporter:

@@ -1128,3 +1128,52 @@ def test_nccl_runner_records_its_all_reduce(cuda):
     assert r["recorded"] >= 1
     assert torch.equal(r["graph"], r["eager"])
     assert float((r["graph"] - r["start"]).abs().max()) > 1e-4
+
+
+def test_a_replay_runs_the_device_nodes_its_capture_counted(cuda):
+    """A recorded block's device nodes, counted while it was captured,
+    are the operations one traced replay of it runs; the force terms' and
+    the step's spans hold every node. A block with WHILE nodes (the
+    constraint solver's) has no split."""
+    from openmmgridforce_tpu_torch import convert
+    from openmmgridforce_tpu_torch.mm import graphs, system
+
+    x, ts, binding = _ladder_system(cuda, torch.float32)
+    pos = np.repeat(x[None], 8, axis=0)
+    run = system.make_md_runner(graphs.BLOCK, 0.001, 5.0, device=cuda)
+    states = convert.states_from_arrays(pos, np.zeros_like(pos), seed=0,
+                                        dtype=torch.float32, device=cuda)
+    run(states, ts, [binding], 300.0)
+    seg = list(system._SEGMENTS.values())[-1].segment
+    blk = seg._blocks[graphs.BLOCK]
+    total, spans = blk.nodes
+    assert {name for name, _, n in spans if n} == {
+        "omgf.step.integrate", "omgf.force.bonded", "omgf.force.pair",
+        "omgf.force.grid"}
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        blk.play(seg)
+        torch.cuda.synchronize()
+    ops = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and not e.is_user_annotation]
+    assert len(ops) == total
+    assert f"omgf.replay.{blk.serial}" in {e.name for e in prof.events()}
+
+    _, ts_c, binding_c = _ladder_system(cuda, torch.float32, "HBonds")
+    run(states, ts_c, [binding_c], 300.0)
+    seg = list(system._SEGMENTS.values())[-1].segment
+    assert seg._blocks[graphs.BLOCK].nodes is None
+
+
+def test_generation_on_the_card_emits_the_memory_guard_span(cuda):
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        gridgen.generate_grid((3, 3, 3), (0.1,) * 3, (0.0,) * 3, "ljr",
+                              np.array([[0.1] * 3]), [0.0], [0.3], [1.0],
+                              device=cuda)
+    names = {e.name for e in prof.events()}
+    assert {"omgf.gridgen", "omgf.sync.memory_guard", "omgf.sync.atoms",
+            "omgf.sync.grid_geometry"} <= names

@@ -76,6 +76,12 @@ ALLOWED = {
         "as it comes",
     "sampling.bat:make_jax_converters":
         "the port's converters are sampling.bat.make_torch_converters",
+    "utils.observe:Timer":
+        "a wall-clock section timer that nothing called; the port times "
+        "its sections with spans on the profiler's clock (utils.observe."
+        "trace)",
+    "utils.observe:Timer.section": "the same timer's method",
+    "utils.observe:Timer.summary": "the same timer's method",
 }
 
 
