@@ -91,6 +91,15 @@ GRID_CAP = 41840.0
 GRID_TYPES = ("charge", "ljr", "lja")
 RECEPTOR_GAP = 0.7          # nm, least receptor-ligand atom distance
 RECEPTOR_CHARGE_SD = 0.1    # e
+# the paths' complex: the benchmark's (bench_complex), whose ligand holds
+# its bond angles at 70-130 degrees and whose receptor keeps 1.3 nm from
+# it. On synthetic_complex's ligand, grown at random, some equilibrium
+# angles come out near 180 degrees, where a torsion through them blows a
+# replica up at thermal fluctuations; at RECEPTOR_GAP's 0.7 nm the hot
+# rungs of bpmf_path carry ligand atoms into capped receptor wells
+# ("charge fusion"), exchanges pass the fused conformations down the
+# ladder, and a fused replica's 2 fs integration diverges
+BENCH_CONFIG = "gfbench/configs/bench-bspline.json"
 H100_FP32_FLOPS = 67e12       # dense FP32 peak, H100 SXM at 700 W
 # FP64 outside the tensor cores, H100 SXM at 700 W (NVIDIA's data sheet):
 # half the FP32 rate, and no special-function pipe for float64
@@ -177,12 +186,6 @@ BPMF_TRIALS = 10
 BPMF_TRIALS_REFERENCE = 100
 # the example's remedies for capped-well fusion (its --friction help text)
 BPMF_FRICTION = 5.0
-# receptor atoms >= 1.3 nm from the ligand on this path: with
-# RECEPTOR_GAP's 0.7 nm the hot rungs carry ligand atoms into capped
-# receptor wells within the run (the "charge fusion" that
-# synthetic_complex describes), exchanges pass the fused conformations
-# down the ladder, and a fused replica's 2 fs integration diverges
-BPMF_RECEPTOR_GAP = 1.3
 BPMF_X_CHUNK = 16
 DERIV_CHECK_PLANES = 3   # x-planes at each of the grid's start, middle, end
 FAR_FIELD = 0.3          # nm from every receptor atom
@@ -446,6 +449,47 @@ def synthetic_complex(seed: int = 0, n_ligand: int = N_LIGAND,
     return lig, x, receptor, rec
 
 
+def bench_complex(seed: int = 0, n_receptor: int = N_RECEPTOR):
+    """The benchmark's complex (``gfbench/complex.py::from_config`` on
+    BENCH_CONFIG, with ``n_receptor`` receptor atoms) drawn from ``seed``,
+    in synthetic_complex's form: (ligand AmberTopology, ligand coords
+    [n, 3] nm, receptor AmberTopology, receptor coords [m, 3] nm)."""
+    from gfbench.complex import from_config
+    from openmmgridforce_tpu_torch.mm.amber import AmberTopology
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        BENCH_CONFIG)
+    with open(path) as f:
+        config = json.load(f)
+    config["complex"]["receptor_atoms"] = n_receptor
+    lig, rec = from_config(config, seed)
+    terms = dataclasses.asdict(lig)
+    x = terms.pop("coords")
+    names = terms.pop("elements")
+    ligand = AmberTopology(natom=len(names), atom_names=names,
+                           residue_labels=["LIG"],
+                           residue_pointers=np.array([1]), **terms)
+    z2 = np.zeros((0, 2), dtype=np.int64)
+    z = np.zeros(0)
+    receptor = AmberTopology(
+        natom=rec.natom,
+        masses=np.array([_ELEMENTS[e][0] for e in rec.elements]),
+        charges=rec.charges, sigmas=rec.sigmas, epsilons=rec.epsilons,
+        atom_names=list(rec.elements), residue_labels=["REC"],
+        residue_pointers=np.array([1]), bond_idx=z2, bond_k=z, bond_r0=z,
+        angle_idx=np.zeros((0, 3), np.int64), angle_k=z, angle_t0=z,
+        torsion_idx=np.zeros((0, 4), np.int64), torsion_k=z,
+        torsion_per=z, torsion_phase=z, exclusions=[], pairs14=z2, scee=z,
+        scnb=z)
+    return ligand, x, receptor, rec.coords
+
+
+def _gap(lig_crd, rec_crd):
+    """The least receptor-ligand atom distance, nm."""
+    return float(np.linalg.norm(rec_crd[:, None] - lig_crd[None],
+                                axis=2).min())
+
+
 def grid_box(lig_crd, spacing=None):
     """Ligand bounds +- MARGIN at ``spacing`` (default SPACING): (counts,
     origin)."""
@@ -686,8 +730,9 @@ def phase_sass():
     """Instruction counts of each kernel's atom loop, float32 and float64
     instantiations, from cuobjdump where the toolkit has it (for float64,
     the FP64 instructions a pair issues beside GRIDGEN_F64_OPS_PER_PAIR,
-    the fewest its function needs). A diagnostic, but for one gate: float64
-    K1's loop finishes its MUFU seeds itself, with no CALL."""
+    the fewest its function needs). A diagnostic, but for two gates: float64
+    K1's loop finishes its MUFU seeds itself, with no CALL, and the ligand
+    kernels hold no MUFU sine or cosine (no fast maths)."""
     from openmmgridforce_tpu_torch import cuda_build
 
     for name in cuda_build.LIBRARIES:
@@ -711,6 +756,12 @@ def phase_sass():
               "fp64_ops_per_pair_needed": (GRIDGEN_F64_OPS_PER_PAIR
                                            if name == "gridgen_values"
                                            else None)})
+        if name == "ligand_forces":
+            # precise sinf and cosf reduce the argument and evaluate a
+            # polynomial; fast maths puts them on the MUFU pipe
+            fast = sorted(set(re.findall(r"MUFU\.(?:SIN|COS)\b", text)))
+            check(not fast, f"ligand_forces: fast-math {fast} in the "
+                  "listing")
         if name == "gridgen_values":
             check(set(per_type_f64) == set(GRID_TYPES), "float64 K1: no "
                   "atom loop with a MUFU seed in the listing")
@@ -1327,6 +1378,15 @@ def _packed_eval():
     return packed_eval
 
 
+def _ligand_kernels():
+    """The intra-ligand force kernels' wrappers, whose ``launches`` a path
+    reads."""
+    from openmmgridforce_tpu_torch.ops.cuda_ligand_forces import (
+        ligand_bonded, ligand_pairs)
+
+    return ligand_bonded, ligand_pairs
+
+
 def _run_path(torch, phase, seed, lig, lig_crd, rec, rec_crd, counts,
               origin, n_replicas, n_steps, device, derivatives):
     """One path of the port from the synthetic complex to final replica
@@ -1352,6 +1412,9 @@ def _run_path(torch, phase, seed, lig, lig_crd, rec, rec_crd, counts,
     values_kernel, derivs_kernel = _reset_launches()
     evaluation = _packed_eval()
     evaluation.launches = 0
+    ligand = _ligand_kernels()
+    for kernel in ligand:
+        kernel.launches = 0
     _sync(torch, device)
     t0 = time.perf_counter()
     grids = [gridgen.generate_grid(
@@ -1402,7 +1465,8 @@ def _run_path(torch, phase, seed, lig, lig_crd, rec, rec_crd, counts,
     t_seg = time.perf_counter() - t0
     launches = {"gridgen_values": values_kernel.launches,
                 "gridgen_derivs": derivs_kernel.launches,
-                "packed_eval": evaluation.launches}
+                "packed_eval": evaluation.launches,
+                **{k.__name__: k.launches for k in ligand}}
     # the same segment as eager launches, over a window from the final
     # states (the window's states are dropped)
     window = make_md_runner(EAGER_STEPS, dt=0.001, friction=5.0,
@@ -1439,6 +1503,9 @@ def _run_path(torch, phase, seed, lig, lig_crd, rec, rec_crd, counts,
               f"{kernel} kernel launched {launches[kernel]} times")
         check(launches["packed_eval"] > 0, f"{phase}: the packed_eval "
               "kernel was not launched")
+        for k in ligand:
+            check(launches[k.__name__] > 0, f"{phase}: the {k.__name__} "
+                  "kernel was not launched")
     for key in ("finite_grids", "finite_table"):
         check(extra.get(key, True), f"{phase}: {key} is false")
     check(finite, "non-finite positions or velocities")
@@ -1532,6 +1599,167 @@ def phase_eval_check(torch, lig, system, binding, states, device="cuda",
     check(e_err < 1e-4 * e_scale, f"energy rel err {e_err / e_scale}")
     check(f_err < 1e-4 * f_scale, f"force rel err {f_err / f_scale}")
     return e32, f32
+
+
+# ----------------------------------------------------------------------
+# The intra-ligand force kernels (ops/cuda_ligand_forces.py)
+# ----------------------------------------------------------------------
+
+# the ligand kernels' gates, of max |E| and of max |F| of the float64
+# twin: float64 kernels within 1e-12 of it; float32 kernels within twice
+# the float32 twin's own distance from it (a path's final states hold stiff
+# poses, where float32 in any order of operations strays 1e-5 and more)
+LIGAND_GATE_F64 = 1e-12
+LIGAND_GATE_F32_OVER_TWIN = 2.0
+# floating-point operations as the kernels write them (a sqrt, rsqrt, acos,
+# atan2, sin or cos counts one): a bond, an angle, a torsion, a pair (once
+# for both atoms) and a row of force summed onto its atom
+LIGAND_OPS = {"bond": 18, "angle": 66, "torsion": 123, "pair": 36, "row": 3}
+LIGAND_CALLS = 20       # calls a recorded graph holds
+LIGAND_REPS = 25        # replays timed
+
+
+def _ligand_registers():
+    """Registers a thread of each instantiation of the two kernels, from
+    the build log: {"ligand_bonded float32": n, ...}."""
+    from openmmgridforce_tpu_torch import cuda_build
+
+    out = {}
+    for entry, n in cuda_build.kernel_registers("ligand_forces").items():
+        key = re.search(r"(ligand_\w+?)_kernelI([fd])E", entry)
+        if key:
+            real = "float64" if key.group(2) == "d" else "float32"
+            out[f"{key.group(1)} {real}"] = n
+    return out
+
+
+def ligand_forces_bound(torch, system, n_replicas, dtype):
+    """The least device time of each kernel: the bytes it must move
+    (bonded: positions in, energies and forces out; pairs: positions and
+    the bonded energies and forces in, their sums out) at H100_BYTES_PER_S,
+    against LIGAND_OPS's operations (and the energy sums) at the dtype's
+    peak."""
+    n = system.num_atoms
+    b, a, t = (len(system.bond_idx), len(system.angle_idx),
+               len(system.torsion_idx))
+    pairs = int((system.pairs.mask > 0).sum())
+    item = torch.finfo(dtype).bits // 8
+    peak = H100_FP64_FLOPS if dtype == torch.float64 else H100_FP32_FLOPS
+    ops = {"bonded": n_replicas * (
+               b * LIGAND_OPS["bond"] + a * LIGAND_OPS["angle"]
+               + t * LIGAND_OPS["torsion"]
+               + (2 * b + 3 * a + 4 * t) * LIGAND_OPS["row"] + b + a + t),
+           "pairs": n_replicas * (pairs * LIGAND_OPS["pair"] + 4 * n + 1)}
+    moved = {"bonded": n_replicas * (6 * n + 1) * item,
+             "pairs": n_replicas * (9 * n + 2) * item}
+    out = {}
+    for kernel in ("bonded", "pairs"):
+        bounds = {"bytes": moved[kernel] / H100_BYTES_PER_S,
+                  "operations": ops[kernel] / peak}
+        by = max(bounds, key=bounds.get)
+        out[kernel] = {"bytes": moved[kernel], "flops": ops[kernel],
+                       "bound_ms": 1e3 * bounds[by], "bound_by": by}
+    return out
+
+
+def _graph_calls_ms(torch, fn):
+    """ms a call of ``fn``, LIGAND_CALLS calls recorded in one CUDA graph
+    (after an eager call), replayed back to back between CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(LIGAND_CALLS):
+            fn()
+    ms = _cuda_ms(torch, graph.replay, LIGAND_REPS) / LIGAND_CALLS
+    del graph
+    return ms
+
+
+def phase_ligand_forces_check(torch, lig, system, states,
+                              path="main_path"):
+    """The bonded and the pair kernel against their plain twins on a
+    path's final states [R, N, 3], with the same ligand in float64 and in
+    float32 (LIGAND_GATE_F64, LIGAND_GATE_F32_OVER_TWIN); each kernel's and
+    its twin's ms a recorded call (and an eager call) at the path's shape,
+    beside its bound, registers and plan. Returns the figures."""
+    from openmmgridforce_tpu_torch.mm import system_from_amber
+    from openmmgridforce_tpu_torch.mm.forcefield import bonded_energy_forces
+    from openmmgridforce_tpu_torch.ops import cuda_ligand_forces as lf
+    from openmmgridforce_tpu_torch.ops.pairwise import pair_energy_forces
+
+    def rel(got, want):
+        return float((got - want).abs().max() / want.abs().max())
+
+    x = states.positions
+    s64 = system_from_amber(lig, dtype=torch.float64, hydrogen_mass=4.0,
+                            device=x.device)
+    x64 = x.double()
+    w_b = bonded_energy_forces(x64, s64)
+    w_p = pair_energy_forces(s64.pairs, x64)
+    truth = {"bonded": w_b, "total": (w_b[0] + w_p[0], w_b[1] + w_p[1])}
+    errors = {}
+    for name, s, xd in (("float64", s64, x64), ("float32", system, x)):
+        k_b = lf.ligand_bonded(xd, s)
+        kernels = {"bonded": k_b, "total": lf.ligand_pairs(s.pairs, xd, *k_b)}
+        t_b = bonded_energy_forces(xd, s)
+        t_p = pair_energy_forces(s.pairs, xd)
+        twins = {"bonded": t_b, "total": (t_b[0] + t_p[0], t_b[1] + t_p[1])}
+        torch.cuda.synchronize()
+        err = {"finite": bool(all(torch.isfinite(t).all()
+                                  for t in kernels["total"]))}
+        for term in ("bonded", "total"):
+            for i, q in enumerate("EF"):
+                want = truth[term][i]
+                err[f"{term}_{q}_rel"] = rel(kernels[term][i].double(), want)
+                err[f"twin_{term}_{q}_rel"] = rel(twins[term][i].double(),
+                                                  want)
+        errors[name] = err
+    e_b, f_b = lf.ligand_bonded(x, system)
+
+    def pairs_plain():
+        e_p, f_p = pair_energy_forces(system.pairs, x)
+        return e_b + e_p, f_b + f_p
+
+    calls = {"bonded": lambda: lf.ligand_bonded(x, system),
+             "pairs": lambda: lf.ligand_pairs(system.pairs, x, e_b, f_b),
+             "bonded_plain": lambda: bonded_energy_forces(x, system),
+             "pairs_plain": pairs_plain}
+    times = {f"{k}_ms": _graph_calls_ms(torch, fn) for k, fn in calls.items()}
+    times.update({f"{k}_eager_ms": _cuda_ms(torch, calls[k], LIGAND_REPS)
+                  for k in ("bonded", "pairs")})
+    n = x.shape[-2]
+    bound = ligand_forces_bound(torch, system, x.shape[0], x.dtype)
+    plans = {"bonded": lf.bonded_plan(system, n, x.dtype),
+             "pairs": lf.pair_plan(
+                 n, len(lf.pair_partners(system.pairs).entries), x.dtype)}
+    out = {k: {"ms": times[f"{k}_ms"], "plain_ms": times[f"{k}_plain_ms"],
+               "eager_ms": times[f"{k}_eager_ms"], **bound[k],
+               "bound_share": bound[k]["bound_ms"] / times[f"{k}_ms"],
+               "replicas_a_block": plans[k].replicas,
+               "threads": plans[k].threads,
+               "shared_bytes": plans[k].shared_bytes,
+               "table_bytes": plans[k].table_bytes,
+               "blocks": plans[k].blocks(x.shape[0])}
+           for k in ("bonded", "pairs")}
+    emit({"phase": "ligand_forces_check", "path": path,
+          "poses": list(x.shape[:2]), "terms": [len(system.bond_idx),
+                                                len(system.angle_idx),
+                                                len(system.torsion_idx)],
+          "live_pairs": int((system.pairs.mask > 0).sum()),
+          "errors": errors, "gate": {
+              "float64": LIGAND_GATE_F64,
+              "float32_over_twin": LIGAND_GATE_F32_OVER_TWIN}, **out,
+          "registers": _ligand_registers(),
+          "replaces": "no TPU kernel (XLA operations in the JAX package)"})
+    for name, err in errors.items():
+        keys = [k for k in err if k.endswith("_rel") and "twin" not in k]
+        ok = err["finite"] and all(
+            err[k] <= (LIGAND_GATE_F64 if name == "float64"
+                       else LIGAND_GATE_F32_OVER_TWIN * err["twin_" + k])
+            for k in keys)
+        check(ok, f"the ligand force kernels on {path}, {name}: {err}")
+    return out
 
 
 def phase_deriv_eval_check(torch, lig, system, binding, hermite, states,
@@ -1724,6 +1952,9 @@ def phase_bpmf_path(torch, seed, lig, lig_crd, rec, rec_crd, counts,
     values_kernel, derivs_kernel = _reset_launches()
     evaluation = _packed_eval()
     evaluation.launches = 0
+    ligand = _ligand_kernels()
+    for kernel in ligand:
+        kernel.launches = 0
     apply_shake.stats.reset()
     apply_rattle.stats.reset()
     _sync(torch, device)
@@ -1793,7 +2024,12 @@ def phase_bpmf_path(torch, seed, lig, lig_crd, rec, rec_crd, counts,
                                                    / wall_s)})
     launches = {"gridgen_values": values_kernel.launches,
                 "gridgen_derivs": derivs_kernel.launches,
-                "packed_eval": evaluation.launches}
+                "packed_eval": evaluation.launches,
+                **{k.__name__: k.launches for k in ligand}}
+    if torch.device(device).type == "cuda":
+        for k in ligand:
+            check(launches[k.__name__] > 0, f"bpmf_path: the {k.__name__} "
+                  "kernel was not launched")
     phase_path_packed_eval(torch, "bpmf_path", multi,
                            sampler.states.positions, scaling)
 
@@ -1812,7 +2048,7 @@ def phase_bpmf_path(torch, seed, lig, lig_crd, rec, rec_crd, counts,
     emit({"phase": "bpmf_path", "counts": counts,
           "grid_points": counts[0] * counts[1] * counts[2],
           "ligand_atoms": lig.natom, "receptor_atoms": rec.natom,
-          "receptor_gap_nm": BPMF_RECEPTOR_GAP, "states": n_states,
+          "receptor_gap_nm": _gap(lig_crd, rec_crd), "states": n_states,
           "ladder_K": [BPMF_T_MIN, BPMF_T_HIGH],
           "constraints": cs.num_constraints, "dt_ps": BPMF_DT,
           "friction": BPMF_FRICTION, "hydrogen_mass": BPMF_H_MASS,
@@ -2129,7 +2365,7 @@ def phase_api_path(torch, seed, smi, lig, lig_crd, rec, rec_crd, counts,
     emit({"phase": "api_path", "counts": counts,
           "grid_points": counts[0] * counts[1] * counts[2],
           "ligand_atoms": lig.natom, "receptor_atoms": rec.natom,
-          "receptor_gap_nm": BPMF_RECEPTOR_GAP, "dtype": "float64",
+          "receptor_gap_nm": _gap(lig_crd, rec_crd), "dtype": "float64",
           "launches": launches, "launches_by_stage": stages,
           "getstate_rel_err": {k: {"energy": e, "forces": f}
                                for k, (e, f) in errors.items()},
@@ -3780,14 +4016,14 @@ def _rank_figures(torch, device, t0):
     return time.perf_counter() - t0, gb
 
 
-def _scaleout_setup(torch, cfg, device, which="complex"):
-    """The complex the parent built (``cfg[which]``), its grid box and the
-    per-atom scalings on ``device``."""
+def _scaleout_setup(torch, cfg, device):
+    """The complex the parent built (``cfg["complex"]``), its grid box and
+    the per-atom scalings on ``device``."""
     from openmmgridforce_tpu_torch.ops import gridgen
 
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
-    lig, lig_crd, rec, rec_crd = cfg[which]
+    lig, lig_crd, rec, rec_crd = cfg["complex"]
     counts, origin = grid_box(lig_crd, cfg["spacing"])
     scaling = torch.as_tensor(np.stack([gridgen.auto_scaling_factors(
         gt, lig.charges, lig.sigmas, lig.epsilons) for gt in GRID_TYPES]),
@@ -4096,7 +4332,7 @@ def _sampler_rank(device, cfg, dp):
     t_start = time.perf_counter()
     _packed_eval().launches = 0
     lig, lig_crd, rec, rec_crd, counts, origin, scaling = _scaleout_setup(
-        torch, cfg, device, which="bpmf_complex")
+        torch, cfg, device)
     values_kernel, _ = _reset_launches()
     grids = [gridgen.generate_grid(
         counts, (cfg["spacing"],) * 3, origin, gt, rec_crd, rec.charges,
@@ -4175,9 +4411,7 @@ def phase_scaleout_path(torch, seed, smi, device="cuda", spacing=SPACING,
     cfg = {"seed": seed, "spacing": spacing, "replicas": replicas,
            "md_steps": md_steps, "screen_steps": screen_steps,
            "bpmf_trials": bpmf_trials, "bpmf_nstep_md": bpmf_nstep_md,
-           "complex": synthetic_complex(seed, n_receptor=n_receptor),
-           "bpmf_complex": synthetic_complex(seed, n_receptor=n_receptor,
-                                             gap=BPMF_RECEPTOR_GAP)}
+           "complex": bench_complex(seed, n_receptor)}
     rank_device = None if on_card else "cpu"
     t_phase = time.perf_counter()
     t0 = time.perf_counter()
@@ -4327,7 +4561,7 @@ def main(argv=None):
     phase_packed_eval_ragged(torch)
     phase_twofloat_check(torch, args.seed)
 
-    lig, lig_crd, rec, rec_crd = synthetic_complex(args.seed)
+    lig, lig_crd, rec, rec_crd = bench_complex(args.seed)
     counts, origin = grid_box(lig_crd)
     complex_ = (lig, lig_crd, rec, rec_crd, counts, origin)
     checks = {
@@ -4343,6 +4577,7 @@ def main(argv=None):
         phase_main_path(torch, args.seed, *complex_)
     main_poses = states.positions[:N_PHYSICS_POSES].cpu()
     phase_eval_check(torch, lig, system, binding, states)
+    phase_ligand_forces_check(torch, lig, system, states)
     evaluation = {"main_path": phase_packed_eval_check(
         torch, "main_path", binding.grid, binding.scaling, states.positions)}
     phase_step_profile(torch, system, binding, states)
@@ -4371,10 +4606,6 @@ def main(argv=None):
     del binding, hermite
     phase_semantics_check(torch, args.seed, *complex_)
 
-    lig, lig_crd, rec, rec_crd = synthetic_complex(args.seed,
-                                                   gap=BPMF_RECEPTOR_GAP)
-    check(grid_box(lig_crd) == (counts, origin), "the BPMF complex's "
-          "ligand differs from the other paths'")
     bpmf = phase_bpmf_path(torch, args.seed, lig, lig_crd, rec, rec_crd,
                            counts, origin)
     for name in ("gridgen_values", "packed_eval"):
@@ -4386,7 +4617,6 @@ def main(argv=None):
     for name in ("gridgen_values", "gridgen_derivs", "packed_eval"):
         launches[name]["scaleout_path"] = scaleout[name]
 
-    lig, lig_crd, rec, rec_crd = synthetic_complex(args.seed)
     checks_f64 = phase_float64_kernels(torch, rec, rec_crd, counts, origin,
                                        sm_count)
     launches_f64 = phase_float64_generation(torch, rec, rec_crd, counts,

@@ -31,6 +31,7 @@ LIBRARIES = {
     "gridgen_derivs": ("gridgen_derivs.cu",),
     "graph_while": ("graph_while.cu",),
     "packed_eval": ("packed_eval.cu",),
+    "ligand_forces": ("ligand_forces.cu",),
 }
 
 

@@ -92,13 +92,33 @@ def assemble_forces(positions, atom_ids, contribs, keys):
     return row_sum(plan, contribs)
 
 
+# the columns of a term's index whose atoms receive its rows of force, in
+# the order its contribs stack them
+_ROW_COLUMNS = {2: (0, 1), 3: (0, 2, 1), 4: (0, 1, 2, 3)}
+
+
+def term_rows(idx):
+    """[m K] the atom of each row of force of the K terms ``idx`` [K, m]
+    (bonds, angles or torsions), in the order their contribs stack them."""
+    return torch.cat([idx[:, c] for c in _ROW_COLUMNS[idx.shape[1]]])
+
+
+def bonded_rows(system):
+    """[2B + 3A + 4T] the atom of each row of the bonded terms' forces, in
+    the order ``bonded_energy_forces`` sums them: bonds' first and second
+    atoms, angles' first, third and centre atoms, torsions' four atoms."""
+    return torch.cat([term_rows(system.bond_idx),
+                      term_rows(system.angle_idx),
+                      term_rows(system.torsion_idx)])
+
+
 def _bond_contribs(positions, idx, k, r0):
     d = _at(positions, idx[:, 0]) - _at(positions, idx[:, 1])
     r = _norm(d)
     dr = r - r0
     e = (0.5 * k * dr * dr).sum(-1)
     f_pair = (-k * dr / r)[..., None] * d          # force on atom i
-    ids = torch.cat([idx[:, 0], idx[:, 1]])
+    ids = term_rows(idx)
     contribs = torch.cat([f_pair, -f_pair], dim=-2)
     return e, ids, contribs
 
@@ -119,7 +139,7 @@ def _angle_contribs(positions, idx, k, t0):
     coef = (k * (theta - t0) / sin_t)[..., None]
     gi = coef * (bh - cos_t[..., None] * ah) / na[..., None] * -1.0
     gk = coef * (ah - cos_t[..., None] * bh) / nb[..., None] * -1.0
-    ids = torch.cat([idx[:, 0], idx[:, 2], idx[:, 1]])
+    ids = term_rows(idx)
     contribs = torch.cat([-gi, -gk, gi + gk], dim=-2)
     return e, ids, contribs
 
@@ -151,7 +171,7 @@ def _torsion_contribs(positions, idx, k, periodicity, phase):
     dphi_dp2 = -dphi_dp0 - dphi_dp1 - dphi_dp3  # translation invariance
 
     de = de_dphi[..., None]
-    ids = torch.cat([idx[:, 0], idx[:, 1], idx[:, 2], idx[:, 3]])
+    ids = term_rows(idx)
     contribs = torch.cat([-de * dphi_dp0, -de * dphi_dp1,
                           -de * dphi_dp2, -de * dphi_dp3], dim=-2)
     return e, ids, contribs
@@ -183,7 +203,7 @@ def bonded_energy_forces(positions, system):
     """Closed-form energy and forces of all bonded terms, assembled with
     one row sum for the whole bonded force."""
     energy = _zero_energy(positions)
-    ids_list, contrib_list = [], []
+    contrib_list = []
     terms = (
         (_bond_contribs, system.bond_idx,
          (system.bond_k, system.bond_r0)),
@@ -194,13 +214,12 @@ def bonded_energy_forces(positions, system):
     )
     for contribs_fn, idx, params in terms:
         if idx.shape[0]:
-            e, ids, c = contribs_fn(positions, idx, *params)
+            e, _, c = contribs_fn(positions, idx, *params)
             energy = energy + e
-            ids_list.append(ids)
             contrib_list.append(c)
-    if not ids_list:
+    if not contrib_list:
         return energy, torch.zeros_like(positions)
-    forces = assemble_forces(positions, torch.cat(ids_list),
+    forces = assemble_forces(positions, bonded_rows(system),
                              torch.cat(contrib_list, dim=-2),
                              (system.bond_idx, system.angle_idx,
                               system.torsion_idx))

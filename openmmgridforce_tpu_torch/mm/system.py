@@ -17,6 +17,7 @@ import torch
 
 from ..device import resolve_device
 from ..grid import Grid
+from ..ops.cuda_ligand_forces import ligand_bonded, ligand_pairs
 from ..ops.interpolate import evaluate_grid
 from ..ops.packed import (HermitePackedGrid, MultiHermitePackedGrid,
                           MultiPackedGrid, PackedGrid,
@@ -27,7 +28,7 @@ from ..utils.observe import trace
 from . import graphs
 from .amber import AmberTopology
 from .constraints import ConstraintSet, constraints_from_bonds
-from .forcefield import bonded_energy, bonded_energy_forces
+from .forcefield import bonded_energy
 from .integrators import (MDState, _recorded, langevin_segment,
                           make_langevin_step, run_segment)
 
@@ -206,14 +207,15 @@ def energy_and_forces(system: System, grids: Sequence[GridBinding],
     sharded table (``parallel/sharded_grid.py``) among the grids makes
     this a collective over its mesh axis. Each term is a span
     (``omgf.force.bonded``, ``.pair``, ``.grid``) that takes in the sum of
-    its share into the totals."""
+    its share into the totals. On the card the bonded terms and the pairs
+    are a kernel each (``ops/cuda_ligand_forces.py``; the pair kernel
+    makes the sums), on the host their plain twins."""
     with trace("omgf.force.bonded"):
-        energy, forces = bonded_energy_forces(positions, system)
+        energy, forces = ligand_bonded(positions, system)
     if system.pairs is not None:
         with trace("omgf.force.pair"):
-            e_p, f_p = pair_energy_forces(system.pairs, positions)
-            energy = energy + e_p
-            forces = forces + f_p
+            energy, forces = ligand_pairs(system.pairs, positions, energy,
+                                          forces)
     for gb in grids:
         with trace("omgf.force.grid"):
             res = _eval_grid(gb.grid, positions, gb.scaling)

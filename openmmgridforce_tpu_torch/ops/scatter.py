@@ -27,9 +27,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-# (ids of the key tensors, (atoms, K, src rows)) -> (weakrefs of the keys,
-# tables), tables: sel [n_atoms * D], table [n_atoms, D] and the padding
-# mask [n_atoms, D, 1] by dtype
+# (ids of the key tensors, extra) -> (weakrefs of the keys, table)
 _TABLES = {}
 
 
@@ -58,20 +56,35 @@ def row_table(index, n_atoms: int):
     return table
 
 
-def _tables(index, n_atoms, src_rows, keys):
-    key = (tuple(id(k) for k in keys), (n_atoms, len(index), src_rows))
+def cached(keys, extra, build):
+    """``build()``, cached by the identity of the tensors ``keys`` and by
+    ``extra``, so that a recording finds a table built on the host without
+    a synchronisation; entries whose keys are gone are dropped."""
+    key = (tuple(id(k) for k in keys), extra)
     hit = _TABLES.get(key)
     if hit is not None and all(r() is k for r, k in zip(hit[0], keys)):
         return hit[1]
-    table = row_table(index, n_atoms)
-    pad = table == len(index)
-    dev = index.device
-    tables = {"sel": torch.as_tensor(np.where(pad, 0, table % src_rows)
-                                     .reshape(-1), device=dev),
-              "table": torch.as_tensor(table, device=dev),
-              "mask": torch.as_tensor(~pad[..., None], device=dev)}
-    _TABLES[key] = (tuple(weakref.ref(k) for k in keys), tables)
-    return tables
+    for dead in [k for k, (refs, _) in _TABLES.items()
+                 if any(r() is None for r in refs)]:
+        del _TABLES[dead]
+    value = build()
+    _TABLES[key] = (tuple(weakref.ref(k) for k in keys), value)
+    return value
+
+
+def _tables(index, n_atoms, src_rows, keys):
+    """sel [n_atoms * D], table [n_atoms, D] and the padding mask
+    [n_atoms, D, 1] of ``index``, and the mask by dtype once asked for."""
+    def build():
+        table = row_table(index, n_atoms)
+        pad = table == len(index)
+        dev = index.device
+        return {"sel": torch.as_tensor(np.where(pad, 0, table % src_rows)
+                                       .reshape(-1), device=dev),
+                "table": torch.as_tensor(table, device=dev),
+                "mask": torch.as_tensor(~pad[..., None], device=dev)}
+
+    return cached(keys, ("rows", n_atoms, len(index), src_rows), build)
 
 
 def fixed_order_plan(index, n_atoms: int, keys, coef=None,

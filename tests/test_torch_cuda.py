@@ -1177,3 +1177,174 @@ def test_generation_on_the_card_emits_the_memory_guard_span(cuda):
     names = {e.name for e in prof.events()}
     assert {"omgf.gridgen", "omgf.sync.memory_guard", "omgf.sync.atoms",
             "omgf.sync.grid_geometry"} <= names
+
+
+# ----------------------------------------------------------------------
+# The intra-ligand force kernels (ops/cuda_ligand_forces.py)
+# ----------------------------------------------------------------------
+
+# of max |E| and of max |F|: float32 sums a few hundred terms an atom or a
+# replica in another order than the twin's ATen operations (the float32
+# twin itself lies 3.5e-7 / 7.9e-7 of them from float64 at this ligand);
+# float64 rounds alike in every order at 1e-12
+LIGAND_GATE = {torch.float32: 2e-5, torch.float64: 1e-12}
+LIGAND_VARIANTS = {"bench": {}, "hbonds": {"constraints": "HBonds"},
+                   "no_pairs": {"include_nonbonded": False}}
+
+
+def _bench_ligand(device, dtype, variant="bench", replicas=1000):
+    """The benchmark's ligand (gfbench/complex.py, structure seed 0) as a
+    System on ``device`` and ``replicas`` poses near its geometry."""
+    from gfbench import complex as bench_complex
+    from gfbench import program
+    from openmmgridforce_tpu_torch.mm import system_from_amber
+
+    lig, _ = bench_complex.synthetic_complex(5, 47, 50, 1.3, 0.1,
+                                             structure_seed=0)
+    system = system_from_amber(program.topology(lig), dtype=dtype,
+                               hydrogen_mass=4.0, device=device,
+                               **LIGAND_VARIANTS[variant])
+    rng = np.random.default_rng(17)
+    x = lig.coords + 0.01 * rng.standard_normal((replicas, 47, 3))
+    return system, torch.as_tensor(x, dtype=dtype, device=device)
+
+
+def _ligand_kernels(system, x):
+    from openmmgridforce_tpu_torch.ops import cuda_ligand_forces as lf
+
+    energy, forces = lf.ligand_bonded(x, system)
+    if system.pairs is not None:
+        energy, forces = lf.ligand_pairs(system.pairs, x, energy, forces)
+    return energy, forces
+
+
+def _ligand_twins(system, x):
+    from openmmgridforce_tpu_torch.mm.forcefield import bonded_energy_forces
+    from openmmgridforce_tpu_torch.ops.pairwise import pair_energy_forces
+
+    energy, forces = bonded_energy_forces(x, system)
+    if system.pairs is not None:
+        e_p, f_p = pair_energy_forces(system.pairs, x)
+        energy, forces = energy + e_p, forces + f_p
+    return energy, forces
+
+
+def _assert_within(got, want, gate):
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        assert torch.isfinite(g).all()
+        err = float((g - w).abs().max() / w.abs().max())
+        assert err <= gate, (err, gate)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("variant, lead", [
+    ("bench", (1000,)), ("bench", ()), ("bench", (4, 250)),
+    ("hbonds", (1000,)), ("no_pairs", (1000,))])
+def test_ligand_kernels_match_their_twins(cuda, variant, lead, dtype):
+    """Each kernel against its plain twin on the card, at 1000 x 47 (and
+    unbatched, and with two leading dimensions), energies and forces."""
+    from openmmgridforce_tpu_torch.mm.forcefield import bonded_energy_forces
+    from openmmgridforce_tpu_torch.ops import cuda_ligand_forces as lf
+
+    system, x = _bench_ligand(cuda, dtype, variant)
+    x = x.reshape(lead + (47, 3)) if lead else x[0]
+    before = (lf.ligand_bonded.launches, lf.ligand_pairs.launches)
+    _assert_within(lf.ligand_bonded(x, system),
+                   bonded_energy_forces(x, system), LIGAND_GATE[dtype])
+    _assert_within(_ligand_kernels(system, x), _ligand_twins(system, x),
+                   LIGAND_GATE[dtype])
+    torch.cuda.synchronize()
+    pairs = int(system.pairs is not None)
+    assert (lf.ligand_bonded.launches, lf.ligand_pairs.launches) == (
+        before[0] + 2, before[1] + pairs)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_ligand_kernels_repeat_and_record_bit_for_bit(cuda, dtype):
+    """Two launches give the same bits, and so does a recorded call."""
+    system, x = _bench_ligand(cuda, dtype)
+    first, second = _ligand_kernels(system, x), _ligand_kernels(system, x)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        recorded = _ligand_kernels(system, x)
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b, c in zip(first, second, recorded):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_pair_kernel_reads_a_table_too_large_to_stage_alike(cuda, dtype,
+                                                          monkeypatch):
+    """A partner table that does not fit a block's shared memory is read
+    from device memory, with the same bits as the staged one."""
+    from openmmgridforce_tpu_torch.ops import cuda_ligand_forces as lf
+
+    system, x = _bench_ligand(cuda, dtype)
+    bonded = lf.ligand_bonded(x, system)
+    staged = lf.ligand_pairs(system.pairs, x, *bonded)
+    n_entries = len(lf.pair_partners(system.pairs).entries)
+    assert lf.pair_plan(47, n_entries, dtype).table_bytes > 0
+    monkeypatch.setattr(lf, "MAX_SHARED", 20000)
+    assert lf.pair_plan(47, n_entries, dtype).table_bytes == 0
+    direct = lf.ligand_pairs(system.pairs, x, *bonded)
+    torch.cuda.synchronize()
+    assert torch.equal(staged[0], direct[0])
+    assert torch.equal(staged[1], direct[1])
+
+
+@pytest.mark.parametrize("variant", ["bench", "hbonds"])
+def test_md_segment_goes_through_the_ligand_kernels(cuda, variant):
+    """A recorded segment of the bench ligand (no grids) equals the same
+    blocks run eagerly bit for bit, and both launch the kernels. At 1 fs:
+    the poses break the HBonds constraints, and at 2 fs a replica of them
+    goes non-finite on the host's twins too."""
+    from openmmgridforce_tpu_torch import convert
+    from openmmgridforce_tpu_torch.mm import graphs, system as mm_system
+    from openmmgridforce_tpu_torch.ops import cuda_ligand_forces as lf
+
+    ts, x = _bench_ligand(cuda, torch.float32, variant, replicas=64)
+    rng = np.random.default_rng(5)
+    n_steps = 8
+    noise = torch.as_tensor(rng.standard_normal((n_steps,) + x.shape),
+                            dtype=torch.float32, device=cuda)
+    run = mm_system.make_md_runner(n_steps, 0.001, 5.0, device=cuda)
+    pos = x.cpu().numpy()
+    out = {}
+    for mode in ("graph", "eager"):
+        states = convert.states_from_arrays(pos, np.zeros_like(pos), seed=0,
+                                            dtype=torch.float32, device=cuda)
+        before = (lf.ligand_bonded.launches, lf.ligand_pairs.launches)
+        if mode == "eager":
+            with graphs.eager():
+                out[mode] = run(states, ts, [], 300.0, noise=noise)
+        else:
+            out[mode] = run(states, ts, [], 300.0, noise=noise)
+        assert lf.ligand_bonded.launches > before[0]
+        assert lf.ligand_pairs.launches > before[1]
+    torch.cuda.synchronize()
+    for field in ("positions", "velocities"):
+        a, b = (getattr(out[m], field) for m in ("graph", "eager"))
+        assert torch.isfinite(a).all()
+        assert torch.equal(a, b), (field, float((a - b).abs().max()))
+
+
+def test_ligand_kernels_refuse_a_shape_over_their_limit(cuda):
+    """Shapes whose replica does not fit a block's shared memory raise,
+    naming the limit, before anything is built or launched."""
+    from openmmgridforce_tpu_torch.ops import cuda_ligand_forces as lf
+
+    system, _ = _bench_ligand(cuda, torch.float64)
+    x = torch.zeros(2, 20000, 3, dtype=torch.float64, device=cuda)
+    with pytest.raises(ValueError, match=str(lf.MAX_SHARED)):
+        lf.ligand_bonded(x, system)
+    n = 8000
+    big = dataclasses.replace(system.pairs, **{
+        k: getattr(system.pairs, k)[:1, :1].expand(n, n)
+        for k in ("qq", "sigma", "epsilon", "mask")})
+    e, f = x.new_zeros(2), x.new_zeros(2, n, 3)
+    with pytest.raises(ValueError, match=str(lf.MAX_SHARED)):
+        lf.ligand_pairs(big, x[:, :n], e, f)
+    with pytest.raises(ValueError, match="float32 on"):
+        lf.ligand_bonded(x.float()[:, :47], system)

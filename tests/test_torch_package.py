@@ -19,6 +19,7 @@ from openmmgridforce_tpu_torch.mm import constraints, system
 from openmmgridforce_tpu_torch import cuda_build
 from openmmgridforce_tpu_torch.io import streaming
 from openmmgridforce_tpu_torch.ops import (cuda_gridgen, cuda_gridgen_derivs,
+                                           cuda_ligand_forces,
                                            cuda_packed_eval, gridgen, packed,
                                            pairwise, radial)
 from openmmgridforce_tpu_torch.parallel import replicas
@@ -80,9 +81,17 @@ def test_every_kernel_has_its_source():
     the fused evaluation of a pack), each with its sources under csrc/, a
     wrapper with a launch counter, and a plain twin beside it; beside them
     the binding that adds conditional WHILE nodes to recorded MD segments
-    (no TPU kernel's port)."""
+    and the MD step's intra-ligand force kernels (no TPU kernel's port),
+    whose wrappers count their launches and take plain twins on the
+    host."""
     kernels = {"gridgen_values", "gridgen_derivs", "packed_eval"}
-    assert set(cuda_build.LIBRARIES) == kernels | {"graph_while"}
+    assert set(cuda_build.LIBRARIES) == kernels | {"graph_while",
+                                                   "ligand_forces"}
+    text = (cuda_build.CSRC / "ligand_forces.cu").read_text()
+    for name in ("ligand_bonded", "ligand_pairs"):
+        assert f'extern "C" int {name}_launch(' in text
+        assert getattr(cuda_ligand_forces, name).launches == 0
+    assert "__global__" in text
     text = (cuda_build.CSRC / "graph_while.cu").read_text()
     assert 'extern "C"' in text and "__global__" in text
     assert "cudaGraphCondTypeWhile" in text
