@@ -84,6 +84,8 @@ class Run:
                                              device)
         self.setup_s = None
         self.trace = None
+        # the traced window (gfbench.trace.traced) while it is open
+        self.tracing = None
         self.spans = {}
 
     @property
@@ -97,13 +99,17 @@ class Run:
     @contextlib.contextmanager
     def span(self, name, sync=False):
         """A span of the benchmark's own around a call into a layer: a
-        range in the profiler's trace and, with ``sync``, a synchronised
-        host time kept under ``spans[name]``."""
+        range in the profiler's trace; where the traced window times the
+        card by events, the body's interval on the card
+        (``gfbench.trace.traced.mark``); and, with ``sync``, a
+        synchronised host time kept under ``spans[name]``."""
         cuda = self.device.type == "cuda"
         if sync and cuda:
             torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with torch.profiler.record_function("gfbench." + name):
+        marked = (self.tracing.mark(name) if self.tracing is not None
+                  else contextlib.nullcontext())
+        with torch.profiler.record_function("gfbench." + name), marked:
             yield
             if sync and cuda:
                 torch.cuda.synchronize()
@@ -133,8 +139,9 @@ def execute(name, seed, seconds, trace, device, started, files=None):
           "cell's set-up", file=sys.stderr)
     s.run_window(seconds)
     if trace:
-        window = tr.traced(device)
+        window = run.tracing = tr.traced(device)
         s.run_traced(run.span, window)
+        run.tracing = None
         run.trace = window.trace
     peak = torch.cuda.max_memory_allocated() if cuda else 0
     metrics = {}
@@ -158,10 +165,15 @@ def execute(name, seed, seconds, trace, device, started, files=None):
     if trace:
         dev["busy_s"] = run.trace.busy_s()
         dev["window_s"] = run.trace.window_s()
+        dev["busy_from"] = run.trace.busy_from
     result = {"correct": correct, "attempted": s.window["items"],
               "failed": failed, "metrics": metrics, "device": dev}
     if trace:
-        result["breakdown"] = {"device_ops": run.trace.top_ops(),
-                               "idle_gaps": run.trace.idle_gaps()}
+        # no device_ops where the card was timed by events: the profiler
+        # would have counted one pass of each WHILE body
+        breakdown = {"device_ops": run.trace.top_ops(),
+                     "idle_gaps": run.trace.idle_gaps()}
+        result["breakdown"] = {k: v for k, v in breakdown.items()
+                               if v is not None}
     result["checks"] = checks
     return result, checks

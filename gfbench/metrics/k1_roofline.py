@@ -9,7 +9,7 @@ from gfbench import yardstick
 
 def read(run):
     t, traced = run.trace, run.traced
-    if t is None or "receptors" not in traced:
+    if t is None or not t.device_ops or "receptors" not in traced:
         return None
     calls, seconds = t.ops("gridgen_values_kernel")
     if not calls:

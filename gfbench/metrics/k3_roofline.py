@@ -9,7 +9,7 @@ from gfbench import yardstick
 
 def read(run):
     t, traced = run.trace, run.traced
-    if t is None or "positions" not in traced:
+    if t is None or not t.device_ops or "positions" not in traced:
         return None
     calls, seconds = t.ops("packed_eval_kernel")
     if not calls:

@@ -20,6 +20,16 @@ operation must get one of its own kind (kernel, copy or fill), no
 operation may start before its launch (within the two clocks' offset and
 drift), and every operation must be dealt. Where any of that fails the
 split is None, never a part of one.
+
+The two clocks' offset: the profiler's device clock can lie behind the
+host's by hundreds of us (93 and 824 us seen on the card at a window's
+start, where the device waits for the host). Where no deal holds at no
+offset and the profiler missed no operation, the offset is
+fitted from the launches' least lead (a device operation's start less its
+launch's) over the launches whose operation found the device idle, since
+those start as soon as the launch arrives; every other operation must
+then start no earlier than its launch by that offset, within SKEW_US and
+the drift.
 """
 
 from __future__ import annotations
@@ -31,12 +41,15 @@ REPLAY = "omgf.replay."
 # CUDA runtime and driver calls that enqueue device operations, by kind
 _LAUNCH = re.compile(r"^cu(da)?(GraphLaunch|Memcpy|Memset|Launch"
                      r"(Cooperative)?Kernel)")
-# how far a device operation's clock stamp may lie before its launch's:
-# the two clocks' offset, and their drift as a share of the time since the
-# window began (up to 0.5% seen on the card in a process's later profiler
-# sessions)
+# how far a device operation's clock stamp may lie before its launch's,
+# beyond the fitted offset: the jitter of a launch's lead, and the clocks'
+# drift as a share of the time since the window began (up to 0.5% seen on
+# the card in a process's later profiler sessions)
 SKEW_US = 50.0
 DRIFT = 0.01
+# a device operation that starts this long after the one before it ended
+# found the device idle: it started as soon as its launch arrived
+IDLE_US = 10.0
 
 
 # ----------------------------------------------------------------------
@@ -191,17 +204,26 @@ def launches(trace, blocks):
                                lo - SKEW_US)
     ops = trace.device_ops[first:]
     missed = sum(c[3] for c in calls) - len(ops)
-    fits = [d for d in (_deal_from(calls, ops, a, first, lo)
-                        for a in range(missed + 1)) if d is not None]
-    return fits[0] if len(fits) == 1 else None
+    # at no offset first, so that a window that deals so splits as before;
+    # an offset is fitted only where the profiler missed no operation: it
+    # would trade against the operations missed at the start
+    for fit in (False, True):
+        tries = range(int(missed == 0) if fit else missed + 1)
+        fits = [d for d in (_deal_from(calls, ops, a, first, lo, fit)
+                            for a in tries) if d is not None]
+        if fits:
+            return fits[0] if len(fits) == 1 else None
+    return None
 
 
-def _deal_from(calls, ops, missed, first, start):
+def _deal_from(calls, ops, missed, first, start, fit):
     """``launches`` over the window's operations ``ops`` (the trace's from
     index ``first`` on) where the profiler missed the first ``missed``
     operations (and the last, as many as are left over); the window
-    begins at ``start``."""
-    p, out = -missed, []
+    begins at ``start``. ``fit``: the clocks' offset is the least lead
+    of the launches whose operation found the device idle (none ahead of
+    the host's clock), else 0."""
+    p, out, leads = -missed, [], []
     for s, kind, serial, n in calls:
         lo, p = p, p + n
         if p <= 0 or lo >= len(ops):
@@ -212,9 +234,14 @@ def _deal_from(calls, ops, missed, first, start):
             return None          # a replay missed in part
         if serial is None and op_kind(ops[lo][0]) != kind:
             return None
-        if ops[lo][1] < s - SKEW_US - DRIFT * (s - start):
-            return None          # an operation before its launch
+        idle = lo == 0 or ops[lo][1] - ops[lo - 1][2] > IDLE_US
+        leads.append((ops[lo][1] - s, s, idle))
         out.append((s, serial, first + lo, n))
+    offset = min([0.0] + [lead for lead, _, idle in leads if idle]) \
+        if fit else 0.0
+    if any(lead < offset - SKEW_US - DRIFT * (s - start)
+           for lead, s, _ in leads):
+        return None              # an operation before its launch
     return out
 
 
@@ -243,17 +270,20 @@ def replay_terms(trace, blocks):
     return out
 
 
-def eager_terms(trace, prefix="omgf."):
+def eager_terms(trace, prefix="omgf.", blocks=None):
     """Device seconds of the operations of launches outside graphs by the
     innermost span named ``prefix...`` running when each was launched
-    ({span or None: seconds}), or None (``launches``)."""
-    dealt = launches(trace, {})
+    ({span or None: seconds}), or None (``launches``). ``blocks``: the
+    recorded blocks whose replays the window holds beside them."""
+    dealt = launches(trace, blocks or {})
     if dealt is None:
         return None
     named_ = [(s, e, n) for n, s, e in trace.host_ops
               if n.startswith(prefix) and not n.startswith(REPLAY)]
     ops, out = trace.device_ops, {}
-    for start, _, p, _ in dealt:
+    for start, serial, p, _ in dealt:
+        if serial is not None:
+            continue
         inner = None
         for s, e, n in named_:
             if s > start:

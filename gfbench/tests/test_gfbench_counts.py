@@ -76,3 +76,50 @@ def test_idle_gaps_are_named_by_the_host_operation_running():
     # each gap begins while only the segment span runs: [0, 10) before
     # cudaGraphLaunch starts, [40, 60) before aten::copy_ starts, [70, 95)
     assert gaps == {"gfbench.segment": pytest.approx((10 + 20 + 25) * 1e-6)}
+
+
+def _events_trace():
+    """The card timed by events: the benchmark's spans' intervals on the
+    card's clock (two overlapping, one past the window's end), no device
+    operation traced."""
+    marks = [("gfbench.segment", 10.0, 40.0), ("gfbench.segment", 30.0, 60.0),
+             ("gfbench.segment", 80.0, 120.0)]
+    host = [("gfbench.segment", 0.0, 100.0), ("aten::copy_", 55.0, 75.0)]
+    return Trace([], host, (0.0, 100.0), busy_from="events", marks=marks)
+
+
+def test_an_events_window_is_busy_in_the_union_of_its_marks():
+    t = _events_trace()
+    assert t.busy_s() == pytest.approx((50 + 20) * 1e-6)
+    assert t.ops() is None and t.ops("k") is None
+    assert t.top_ops() is None
+    # [0, 10) and [60, 80): the first begins under the segment span alone,
+    # the second as aten::copy_ runs
+    assert dict(t.idle_gaps()) == {
+        "gfbench.segment": pytest.approx(10e-6),
+        "aten::copy_": pytest.approx(20e-6)}
+
+
+@pytest.mark.parametrize("name", ["step_device_ms", "step_kernels",
+                                  "k3_roofline", "idle_pct.md",
+                                  "term_ms.grid", "runner_idle_ms"])
+def test_readers_of_device_operations_read_nothing_in_an_events_window(name):
+    import types
+
+    from gfbench import harness
+
+    run = types.SimpleNamespace(trace=_events_trace(),
+                                traced={"steps": 10, "positions": []})
+    assert harness.load_module(
+        harness.ROOT / "metrics" / f"{name}.py").read(run) is None
+
+
+def test_a_window_on_the_cpu_marks_nothing():
+    from gfbench import trace as tr
+
+    window = tr.traced("cpu")
+    with window:
+        with window.mark("x"):
+            pass
+    assert window.trace.busy_from == "profiler"
+    assert window.trace.marks == []

@@ -127,6 +127,63 @@ def test_an_operation_before_its_launch_is_none():
                             t.window), BLOCKS) is None
 
 
+def card_like(offset, late=False):
+    """A window as the card gives it, in us: where the device is idle a
+    launch's operation starts 5 us after it, and the eager kernel
+    launched during the first replay queues behind it; the device's clock
+    lies ``offset`` us behind the host's. ``late``: that kernel's launch
+    moved to 79 us after its operation started."""
+    kernel = (1350, 1357) if late else (1255, 1262)
+    host = [("cudaLaunchKernel", 1000, 1010), ("cudaMemcpyAsync", 1100, 1120),
+            ("omgf.replay.7", 1200, 1300), ("cudaGraphLaunch", 1210, 1250),
+            ("cudaLaunchKernel", *kernel), ("omgf.replay.7", 1400, 1500),
+            ("cudaGraphLaunch", 1410, 1450),
+            ("cudaStreamSynchronize", 1450, 1600)]
+    device = [("k", 1005, 1040), ("Memcpy HtoD (Pageable -> Device)",
+                                  1105, 1107),
+              ("a", 1215, 1230), ("b", 1231, 1260), ("c", 1261, 1270),
+              ("eager", 1271, 1280),
+              ("a", 1415, 1430), ("b", 1431, 1460), ("c", 1461, 1470)]
+    return trace([(n, s - offset, e - offset) for n, s, e in device], host,
+                 window=(0.0, 5000.0))
+
+
+@pytest.mark.parametrize("offset", [93.0, 824.0])
+def test_a_window_behind_the_host_clock_splits_as_one_at_none(offset):
+    """The device's clock behind the host's by more than SKEW_US (as the
+    card gave at a window's start): the offset is fitted from the idle
+    launches' least lead, and the window splits as at no offset."""
+    at_zero = card_like(0.0)
+    assert spans.deal(at_zero, BLOCKS) == [(7, 2), (7, 6)]
+    t = card_like(offset)
+    assert spans.deal(t, BLOCKS) == spans.deal(at_zero, BLOCKS)
+    assert spans.replay_terms(t, BLOCKS) == \
+        spans.replay_terms(at_zero, BLOCKS)
+
+
+@pytest.mark.parametrize("offset", [0.0, 93.0, 824.0])
+def test_an_operation_before_its_launch_is_none_at_any_offset(offset):
+    """The queued kernel's operation 79 us before its launch: the fitted
+    offset comes from the launches that found the device idle, so the
+    operation still lies before its launch."""
+    assert spans.deal(card_like(offset, late=True), BLOCKS) is None
+
+
+@pytest.mark.parametrize("offset", [0.0, 824.0])
+def test_eager_operations_missed_at_the_start_split_into_none(offset):
+    """Five eager kernels, the device idle at each, its clock behind the
+    host's; the profiler missed the first operation. Dealt from the
+    start, every launch would take the next launch's operation, which
+    lies after it: no offset is fitted where an operation was missed."""
+    host = [("omgf.force.grid", 900, 2000)] + [
+        ("cudaLaunchKernel", 1000 + 100 * k, 1010 + 100 * k)
+        for k in range(5)]
+    device = [(f"k{k}", 1005 + 100 * k - offset, 1050 + 100 * k - offset)
+              for k in range(1, 5)]
+    assert spans.eager_terms(trace(device, host, window=(0.0, 5000.0))) \
+        is None
+
+
 def test_a_driver_call_inside_a_runtime_call_is_one_launch():
     t = replays()
     host = sorted(t.host_ops + [("cuLaunchKernel", 720, 780)],
@@ -152,6 +209,22 @@ def test_eager_launches_take_the_innermost_span_at_their_launch():
     # a launch amid the others with no operation of its own: no split
     host = host + [("cudaLaunchKernel", 10.5, 10.8)]
     assert spans.eager_terms(scaled(host)) is None
+
+
+def test_eager_launches_beside_replays_split_without_the_replays():
+    """The copy and the kernel launched between the two replays, the
+    kernel inside the pair term's span: each eager operation goes to the
+    span it was launched in, and the replays' nodes to none; without the
+    blocks the replays cannot be dealt."""
+    t = replays()
+    host = sorted(t.host_ops + [("omgf.force.pair", 650, 850)],
+                  key=lambda h: h[1])
+    t = Trace(t.device_ops, host, t.window)
+    assert spans.eager_terms(t, blocks=BLOCKS) == {
+        None: pytest.approx(2e-4), "omgf.force.pair": pytest.approx(1e-4)}
+    assert spans.replay_terms(t, BLOCKS) == spans.replay_terms(replays(),
+                                                              BLOCKS)
+    assert spans.eager_terms(t) is None
 
 
 def test_the_term_readers_read_ms_a_step(monkeypatch):

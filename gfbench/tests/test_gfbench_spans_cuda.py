@@ -1,8 +1,19 @@
 """On the card, at each MD cell's own size: the replays of a traced
 window split into the four force and step terms, which with the
 operations outside the replays add up to step_device_ms; each term lies
-within 15% of the same term of a block of eager steps; the window records
-no block. Skipped without a card.
+within 15% of the same term of eager steps; the window records no block.
+Skipped without a card.
+
+The eager steps run in the same process and profiler session as the
+replays they are compared with, from the same states: a block of eager
+steps before each traced segment and after the last. K3's time depends
+on how far the replicas have spread from the pose, which grows through a
+job; eager steps from the state that a 1 s window happened to end on,
+in a process of their own, read the triquintic grid term 15-19% above
+the replayed one on some cards (K3 22-32 us from process to process).
+Each block is queued behind a kernel that holds the card until the host
+has launched it, so that its operations run back to back as a replay's
+nodes do, not each when its launch arrives.
 
 Each measurement runs in a process of its own with one profiler session,
 as a benchmark run has: in a process's later sessions the profiler was
@@ -21,6 +32,9 @@ from gfbench import trace as tr
 
 TERMS = ("omgf.force.bonded", "omgf.force.pair", "omgf.force.grid",
          "omgf.step.integrate")
+# the card's clock cycles (about 0.1 s) that it is held for while the host
+# launches a block of eager steps
+HOLD_CYCLES = 200_000_000
 
 
 def reader(name):
@@ -28,8 +42,10 @@ def reader(name):
 
 
 def measure(cell, mode):
-    """``traced``: a cell's traced window, split; ``eager``: a block of
-    eager steps after the cell's window, split by the spans it ran in."""
+    """``traced``: a cell's traced window as a run has it, split;
+    ``beside``: the same window with a held block of eager steps before
+    each traced segment and after the last, the replays and the eager
+    steps each split."""
     from openmmgridforce_tpu_torch.mm import graphs
 
     torch.set_num_threads(1)
@@ -39,7 +55,7 @@ def measure(cell, mode):
     s.setup()
     s.run_window(1.0)
     window = tr.traced("cuda")
-    if mode == "eager":
+    if mode == "beside":
         block = program.md_runner(graphs.BLOCK, s.config, "cuda")
 
         def eager():
@@ -48,10 +64,23 @@ def measure(cell, mode):
                       noise=s.noise[:graphs.BLOCK])
 
         eager()
+        mix = s.mix
+        first = -(-s.window["items"] // mix["job_segments"]) \
+            * mix["job_segments"]
+        s._segment(first)
+        torch.cuda.synchronize()
         with window:
+            for index in range(first + 1, first + 1 + mix["trace_segments"]):
+                torch.cuda._sleep(HOLD_CYCLES)
+                eager()
+                s._segment(index)
+            torch.cuda._sleep(HOLD_CYCLES)
             eager()
-        return {"steps": graphs.BLOCK,
-                "terms": spans.eager_terms(window.trace)}
+        t, blocks = window.trace, spans.recorded_blocks()
+        return {"steps": mix["trace_segments"] * mix["segment_steps"],
+                "terms": spans.replay_terms(t, blocks),
+                "eager_steps": (mix["trace_segments"] + 1) * graphs.BLOCK,
+                "eager_terms": spans.eager_terms(t, blocks=blocks)}
     s.run_traced(run.span, window)
     run.trace = t = window.trace
     blocks = spans.recorded_blocks()
@@ -74,7 +103,7 @@ def measured(request):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     out = {}
-    for mode in ("traced", "eager"):
+    for mode in ("traced", "beside"):
         p = subprocess.run([sys.executable, "-m",
                             "gfbench.tests.test_gfbench_spans_cuda",
                             request.param, mode], cwd=harness.CHECKOUT,
@@ -101,11 +130,11 @@ def test_the_terms_and_the_other_operations_add_up_to_the_step(measured):
 
 @pytest.mark.cuda
 def test_each_term_lies_near_the_same_term_of_eager_steps(measured):
-    graph, eager = measured["traced"], measured["eager"]
-    assert eager["terms"] is not None
+    got = measured["beside"]
+    assert got["terms"] is not None and got["eager_terms"] is not None
     for name in TERMS:
-        graph_ms = graph["terms"][name] * 1e3 / graph["steps"]
-        eager_ms = eager["terms"][name] * 1e3 / eager["steps"]
+        graph_ms = got["terms"][name] * 1e3 / got["steps"]
+        eager_ms = got["eager_terms"][name] * 1e3 / got["eager_steps"]
         assert abs(eager_ms - graph_ms) <= 0.15 * graph_ms, (
             name, eager_ms, graph_ms)
 
