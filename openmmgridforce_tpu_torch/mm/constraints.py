@@ -19,7 +19,8 @@ every block (one synchronisation per block). Inside a recorded MD segment
 ``lax.while_loop`` has it: blocks run in a conditional WHILE node of the
 graph until no replica is active. Each call adds its sweep counts to the
 function's ``stats`` (``apply_shake.stats``, ``apply_rattle.stats``), on
-the device.
+the device. Each call is a span, ``omgf.constraint.shake`` or
+``omgf.constraint.rattle`` (``utils/observe.py``).
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ import torch
 
 from ..device import resolve_device
 from ..ops.scatter import add_rows, row_sum_plan
+from ..utils.observe import trace
 from . import graphs
 
 # sweeps between two host checks of the stopping rule
@@ -314,15 +316,16 @@ def apply_shake(cs: ConstraintSet, x_ref, x_new, tol=1e-5, max_iter=150,
     if cs.num_constraints == 0:
         return x_new, torch.zeros(x_new.shape[:-2], dtype=torch.int64,
                                   device=x_new.device)
-    b = _pair_tensors(cs)
-    b["two_im"] = 2.0 * (b["im_i"] + b["im_j"])
-    b["d0_sq"] = (cs.length * cs.length)[:, None]
-    b["floor"] = torch.full((), 1e-12, dtype=x_new.dtype,
-                            device=x_new.device)
-    inputs = {"d_ref": _pair_diff(b, x_ref)}
-    x, sweeps, executed = _relax(_shake_sweep, cs, b, inputs, x_new,
-                                 max_iter, 2.0 * tol, omega)
-    apply_shake.stats.add(executed, sweeps)
+    with trace("omgf.constraint.shake"):
+        b = _pair_tensors(cs)
+        b["two_im"] = 2.0 * (b["im_i"] + b["im_j"])
+        b["d0_sq"] = (cs.length * cs.length)[:, None]
+        b["floor"] = torch.full((), 1e-12, dtype=x_new.dtype,
+                                device=x_new.device)
+        inputs = {"d_ref": _pair_diff(b, x_ref)}
+        x, sweeps, executed = _relax(_shake_sweep, cs, b, inputs, x_new,
+                                     max_iter, 2.0 * tol, omega)
+        apply_shake.stats.add(executed, sweeps)
     return x, sweeps
 
 
@@ -337,13 +340,14 @@ def apply_rattle(cs: ConstraintSet, x, v, tol=1e-8, max_iter=100,
     if cs.num_constraints == 0:
         return v, torch.zeros(v.shape[:-2], dtype=torch.int64,
                               device=v.device)
-    b = _pair_tensors(cs)
-    d = _pair_diff(b, x)
-    inputs = {"d": d,
-              "den": (b["im_i"] + b["im_j"]) * (d * d).sum(-1, keepdim=True)}
-    v, sweeps, executed = _relax(_rattle_sweep, cs, b, inputs, v, max_iter,
-                                 tol, omega)
-    apply_rattle.stats.add(executed, sweeps)
+    with trace("omgf.constraint.rattle"):
+        b = _pair_tensors(cs)
+        d = _pair_diff(b, x)
+        inputs = {"d": d, "den": (b["im_i"] + b["im_j"])
+                  * (d * d).sum(-1, keepdim=True)}
+        v, sweeps, executed = _relax(_rattle_sweep, cs, b, inputs, v,
+                                     max_iter, tol, omega)
+        apply_rattle.stats.add(executed, sweeps)
     return v, sweeps
 
 

@@ -14,10 +14,26 @@ Monte Carlo moves follow the reference workflow (example/sampler.py):
   * genetic crossover: splice the torsion tail [icut:] of the high-T
     replica into the low-T one, same acceptance.
 
+A genetic move's log_ratio = -beta_low (E_new - E_low) is accepted where
+0 <= log_ratio < 30 (crossover) or 50 (mutation), rejected at or above
+that window (and where it is not a number), and below 0 accepted where a
+uniform u from the host rng is below exp(log_ratio); u is drawn only
+there.
+
 Random numbers: moves chosen on the host come from
 ``np.random.default_rng(seed + 1)``, as in the JAX package, so both pick
 the same moves for one seed; draws on the device (velocities, Langevin
 noise, exchange pairs) come from the sampler's ``torch.Generator``.
+
+Spans (``utils/observe.py``): ``omgf.sampler.exchange``,
+``omgf.sampler.gmc`` (``omgf.sampler.gmc.propose`` around each batch of
+proposals) and ``omgf.sampler.md`` around the sweeps and the MD segment;
+``omgf.sync.exchange`` and ``omgf.sync.gmc`` around their host reads.
+``n_gmc_batches`` counts the genetic sweeps' proposal batches (a re-batch
+after a stale move is one more). ``last_exchange`` and ``last_gmc`` keep
+what the last sweep of each kind read, drew and decided (references to
+what it made; no copy, no synchronisation), so that a check can hold the
+decisions against a plain Metropolis of its own.
 
 With a mesh (``parallel.Mesh``) the rungs split over its ``dp`` axis and
 each rank advances its rows. The Monte Carlo sweeps need every rung: the
@@ -41,6 +57,7 @@ from ..mm.system import GridBinding, System, energy_and_forces, make_md_runner
 from ..parallel.replicas import (redraw_hot_velocities, replica_noise,
                                  replica_rows)
 from ..units import BOLTZ
+from ..utils.observe import trace
 from . import bat
 
 
@@ -161,6 +178,10 @@ class Sampler:
         self.n_exchange_attempted = 0
         self.n_gmc_accepted = 0
         self.n_gmc_attempted = 0
+        self.n_gmc_batches = 0
+        # the last sweeps' inputs and decisions (class docstring)
+        self.last_exchange = None
+        self.last_gmc = None
 
     # ------------------------------------------------------------------
     def _shard_grid(self) -> GridBinding:
@@ -226,6 +247,10 @@ class Sampler:
 
         ``velocities`` [R, N, 3] and ``noise`` [n_steps, R, N, 3] replace
         the generator's draws (the tests replay the JAX package's)."""
+        with trace("omgf.sampler.md"):
+            self._run_md(n_steps, velocities, noise)
+
+    def _run_md(self, n_steps, velocities, noise):
         n = int(n_steps or self.config.md_steps_per_trial)
         x = self.states.positions
         temps = self._temps[self._rows]
@@ -298,7 +323,14 @@ class Sampler:
 
     def replica_exchange_sweep(self, n_attempts: int) -> int:
         """``n_attempts`` Metropolis exchange attempts on the device (same
-        selection rule as replica_exchange; the generator's draws)."""
+        selection rule as replica_exchange; the generator's draws).
+        ``last_exchange`` keeps the ladder's energies, the draws ``i``,
+        ``j`` and ``u`` as ``exchange_sweep`` takes them and the
+        permutation it returned."""
+        with trace("omgf.sampler.exchange"):
+            return self._exchange_sweep(n_attempts)
+
+    def _exchange_sweep(self, n_attempts):
         R = self.config.n_states
         positions = self.positions()
         energies = self._energies(positions)
@@ -310,7 +342,10 @@ class Sampler:
                        dtype=self._betas.dtype, device=self.device)
         perm, n_acc = exchange_sweep(energies, self._betas, i, j, u)
         self._set_positions(positions[perm])
-        n_acc = int(n_acc)
+        self.last_exchange = {"energies": energies, "i": i, "j": j, "u": u,
+                              "perm": perm}
+        with trace("omgf.sync.exchange"):
+            n_acc = int(n_acc)
         self.n_exchange_attempted += n_attempts
         self.n_exchange_accepted += n_acc
         return n_acc
@@ -345,16 +380,22 @@ class Sampler:
     def _candidate_energies(self, cands) -> np.ndarray:
         """Energies (numpy [M]) of M candidate conformations [M, N, 3] in
         one batched evaluation."""
-        return self._energies(cands).cpu().numpy().astype(np.float64)
+        energies = self._energies(cands)
+        with trace("omgf.sync.gmc"):
+            return energies.cpu().numpy().astype(np.float64)
 
     def _pick_low_high(self):
         isel, jsel = self._pick_pair()
         return (isel, jsel) if isel < jsel else (jsel, isel)
 
     @staticmethod
-    def _gmc_accept(rng, log_ratio, splice):
-        return (0 <= log_ratio < (30 if splice else 50)
-                or (log_ratio < 0 and rng.random() < np.exp(log_ratio)))
+    def _gmc_decide(rng, log_ratio, splice):
+        """(accepted, u) of a genetic move (the window and the draw of
+        the class docstring; u None where none was drawn)."""
+        if not log_ratio < 0:
+            return bool(0 <= log_ratio < (30 if splice else 50)), None
+        u = rng.random()
+        return bool(u < np.exp(log_ratio)), u
 
     def _genetic_trial(self, splice: bool, energies=None) -> int:
         if self._zmatrix is None:
@@ -380,7 +421,7 @@ class Sampler:
         e_new = float(self._energies(new_xyz)[0])
         log_ratio = -self.betas[isel] * (e_new - energies[isel])
         self.n_gmc_attempted += 1
-        accept = self._gmc_accept(self._rng, log_ratio, splice)
+        accept, _ = self._gmc_decide(self._rng, log_ratio, splice)
         if accept:
             self.n_gmc_accepted += 1
             energies[isel] = e_new
@@ -404,12 +445,23 @@ class Sampler:
         earlier acceptance in the same sweep is stale: processing stops
         there and the remaining moves are proposed again as one batch from
         the updated ladder, which keeps the serial algorithm's semantics at
-        one batch per chain of invalidations."""
+        one batch per chain of invalidations.
+
+        ``last_gmc`` keeps the ladder's energies at the start, the moves
+        (splice, low, high, icut), each batch of proposals as (first move,
+        candidates, their energies) and each decision as (move,
+        log_ratio, u, accepted)."""
+        with trace("omgf.sampler.gmc"):
+            return self._genetic_sweep(n_pairs, energies)
+
+    def _genetic_sweep(self, n_pairs, energies):
         if self._zmatrix is None:
             raise RuntimeError("genetic MC needs bonds= at construction")
         pos = self.positions()
         if energies is None:
-            energies = self.potential_energies()
+            at_start = self._energies(pos)
+            with trace("omgf.sync.gmc"):
+                energies = at_start.cpu().numpy()
         energies = np.array(energies, dtype=float)
         n_t = len(self._zmatrix)
 
@@ -420,12 +472,18 @@ class Sampler:
                 icut = int(self._rng.integers(n_t))
                 moves.append((splice, isel, jsel, icut))
         columns = [np.asarray(c) for c in zip(*moves)]
+        record = self.last_gmc = {"energies": energies.copy(),
+                                  "moves": moves, "proposals": [],
+                                  "decisions": []}
 
         n_acc = 0
         k = 0
         while k < len(moves):
             # the full move list every time (moves before k are ignored)
-            cands, e_new = self._gmc_propose(pos, *columns)
+            with trace("omgf.sampler.gmc.propose"):
+                cands, e_new = self._gmc_propose(pos, *columns)
+            self.n_gmc_batches += 1
+            record["proposals"].append((k, cands, e_new))
             touched: set = set()
             while k < len(moves):
                 splice, isel, jsel, icut = moves[k]
@@ -434,7 +492,10 @@ class Sampler:
                 self.n_gmc_attempted += 1
                 e_k = float(e_new[k])
                 log_ratio = -self.betas[isel] * (e_k - energies[isel])
-                if self._gmc_accept(self._rng, log_ratio, splice):
+                accepted, u = self._gmc_decide(self._rng, log_ratio, splice)
+                record["decisions"].append((k, float(log_ratio), u,
+                                            accepted))
+                if accepted:
                     n_acc += 1
                     self.n_gmc_accepted += 1
                     pos = pos.index_copy(
