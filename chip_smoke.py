@@ -48,8 +48,9 @@ where it is timed beside its twin, eager and as a CUDA graph. Every MD segment r
 replays of CUDA graphs of blocks of steps; each path also times (and
 profiles) the same segment as eager launches, and segment_graph_check
 holds the two trajectories against each other under the same explicit
-noise (the constrained ladder with its sweeps stopped on the device by a
-WHILE node, and a failed capture must raise). twofloat_check and
+noise (the constrained ladder with its sweeps in the constraint kernel,
+and a failed capture must raise); constraint_kernel_check holds that
+kernel against its plain twin and times it. twofloat_check and
 semantics_check run the double-float32 tier and the alternate kernel
 semantics on the card against float64 on the host. Every
 phase prints a JSON line; the last line is {"ok": true, "device": {...}}.
@@ -1387,6 +1388,14 @@ def _ligand_kernels():
     return ligand_bonded, ligand_pairs
 
 
+def _constraint_kernels():
+    """The constraint kernel's wrappers, whose ``launches`` a path reads."""
+    from openmmgridforce_tpu_torch.ops.cuda_constraints import (
+        constraint_rattle, constraint_shake)
+
+    return constraint_shake, constraint_rattle
+
+
 def _run_path(torch, phase, seed, lig, lig_crd, rec, rec_crd, counts,
               origin, n_replicas, n_steps, device, derivatives):
     """One path of the port from the synthetic complex to final replica
@@ -1952,7 +1961,7 @@ def phase_bpmf_path(torch, seed, lig, lig_crd, rec, rec_crd, counts,
     values_kernel, derivs_kernel = _reset_launches()
     evaluation = _packed_eval()
     evaluation.launches = 0
-    ligand = _ligand_kernels()
+    ligand = _ligand_kernels() + _constraint_kernels()
     for kernel in ligand:
         kernel.launches = 0
     apply_shake.stats.reset()
@@ -2012,8 +2021,11 @@ def phase_bpmf_path(torch, seed, lig, lig_crd, rec, rec_crd, counts,
     timed = {"wall_s": wall_s}
     if torch.device(device).type == "cuda":
         # the trial's MD as device time: its block replayed back to back
-        # (the profiler does not trace the WHILE bodies of the recording)
+        from openmmgridforce_tpu_torch.mm import graphs
         from openmmgridforce_tpu_torch.mm.system import _md_segment
+
+        check(graphs.while_recordings() == 0, "bpmf_path: a recording "
+              "holds a WHILE node")
 
         seg = _md_segment(sampler.system, sampler.grids, sampler.states,
                           config.dt, config.friction, "classic",
@@ -2094,18 +2106,8 @@ def phase_bpmf_path(torch, seed, lig, lig_crd, rec, rec_crd, counts,
           f"accepted in {sampler.n_exchange_attempted}")
     if torch.device(device).type == "cuda":
         phase_bpmf_segments(torch, sampler, nstep_md)
+        phase_constraint_kernel_check(torch, lig, system, sampler.states)
     return launches
-
-
-def _atomic_plan(index, n_atoms, keys, coef=None, src_rows=None,
-                 dtype=None):
-    """A row sum through ``index_add_`` on the card too (its atomics add
-    in no fixed order): what the fixed-order sums are timed against."""
-    from openmmgridforce_tpu_torch.ops.scatter import RowSum
-
-    return RowSum(index, coef, n_atoms,
-                  len(index) if src_rows is None else int(src_rows),
-                  None, None)
 
 
 def _api_grid_force(gfp, counts, origin, grid_data=None):
@@ -2154,6 +2156,9 @@ def phase_api_path(torch, seed, smi, lig, lig_crd, rec, rec_crd, counts,
               "card": smi})
 
     values_kernel, derivs_kernel = _reset_launches()
+    solver = _constraint_kernels()
+    for kernel in solver:
+        kernel.launches = 0
     on_card = torch.device(device).type == "cuda"
     start_gb = torch.cuda.memory_allocated() / 1e9 if on_card else None
     workdir = tempfile.mkdtemp(prefix=".chip_smoke_tiles_",
@@ -2282,7 +2287,7 @@ def phase_api_path(torch, seed, smi, lig, lig_crd, rec, rec_crd, counts,
             timing("eval_ms", _cuda_ms(torch, lambda: ctx._terms.terms(x),
                                        20))
         # what an eager evaluation launches: ATen calls on the host (a
-        # host-only profile: recordings with WHILE nodes are alive)
+        # host-only profile)
         with torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
             ctx._terms.terms(x)
@@ -2347,7 +2352,8 @@ def phase_api_path(torch, seed, smi, lig, lig_crd, rec, rec_crd, counts,
         launches = {
             "gridgen_values_f64": stages["values"]["gridgen_values"],
             "gridgen_derivs_f64": stages["derivatives"]["gridgen_derivs"],
-            "gridgen_values": stages["tiled"]["gridgen_values"]}
+            "gridgen_values": stages["tiled"]["gridgen_values"],
+            **{k.__name__: k.launches for k in solver}}
         from openmmgridforce_tpu_torch.ops.gridgen import receptor_atoms
         for gt in GRID_TYPES if on_card else ():
             atoms = receptor_atoms(gt, rec_crd, rec.charges, rec.sigmas,
@@ -2416,9 +2422,7 @@ def phase_api_path(torch, seed, smi, lig, lig_crd, rec, rec_crd, counts,
 def _replay_ms_per_step(torch, seg, reps=BPMF_REPLAYS):
     """Device time a step of a recorded segment: its block graph replayed
     ``reps`` times back to back, timed with CUDA events (the host launches
-    a replay in microseconds, the card runs it in milliseconds). The
-    profiler is not used: it does not trace the bodies of conditional
-    nodes (PERF.md)."""
+    a replay in microseconds)."""
     from openmmgridforce_tpu_torch.mm import graphs
 
     graph = seg._blocks[graphs.BLOCK].graph
@@ -2435,49 +2439,48 @@ def _replay_ms_per_step(torch, seg, reps=BPMF_REPLAYS):
 
 
 def phase_bpmf_segments(torch, sampler, nstep_md):
-    """The sampler's MD segment as graph replays (the constraint sweeps
-    stopped by a WHILE node), the same recorded with the bonded and
-    constraint row sums through ``index_add_``'s atomics instead of the
-    fixed-order sums, and as eager launches (per-block graphs of sweeps
-    with a host check): rates, sweep counts, device ms a step (recordings:
-    back-to-back replays; eager: the profiler); then the constrained ladder
-    through segment_graph_check."""
+    """The sampler's MD segment as graph replays and as eager launches:
+    rates, sweep counts, device ms a step (recordings: back-to-back
+    replays; eager: the profiler), the constraint kernel's launches a step
+    and the plain twin's relaxations (none on the card); then the
+    constrained ladder through segment_graph_check."""
     import contextlib
     import unittest.mock
 
-    from openmmgridforce_tpu_torch.mm import constraints, forcefield, graphs
+    from openmmgridforce_tpu_torch.mm import constraints, graphs
     from openmmgridforce_tpu_torch.mm.constraints import (apply_rattle,
                                                           apply_shake)
     from openmmgridforce_tpu_torch.mm.system import _md_segment
 
     system = sampler.system
     n_states = sampler.states.positions.shape[0]
+    kernels = _constraint_kernels()
     out = {}
-    for mode in ("graph", "graph_index_add", "eager"):
+    for mode in ("graph", "eager"):
         ctx = contextlib.ExitStack()
         if mode == "eager":
             ctx.enter_context(graphs.eager())
-        if mode == "graph_index_add":
-            # a system of its own, so that its recording is its own
-            sampler.system = dataclasses.replace(system)
-            for mod in (constraints, forcefield):
-                ctx.enter_context(unittest.mock.patch.object(
-                    mod, "row_sum_plan", _atomic_plan))
+        twin = ctx.enter_context(unittest.mock.patch.object(
+            constraints, "_relax", wraps=constraints._relax))
         with ctx:
             sampler.run_md(nstep_md)          # records the segment, untimed
             torch.cuda.synchronize()
             apply_shake.stats.reset()
             apply_rattle.stats.reset()
+            before = sum(k.launches for k in kernels)
             t0 = time.perf_counter()
             for _ in range(BPMF_CANDIDATE_SEGMENTS):
                 sampler.run_md(nstep_md)
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
-            row = {"replica_steps_per_s": (BPMF_CANDIDATE_SEGMENTS * nstep_md
-                                           * n_states / seconds),
+            steps = BPMF_CANDIDATE_SEGMENTS * nstep_md
+            row = {"replica_steps_per_s": steps * n_states / seconds,
                    "sweeps_per_call": {"shake": apply_shake.stats.summary(),
-                                       "rattle": apply_rattle.stats.summary()}}
-            wall_ms = seconds * 1e3 / (BPMF_CANDIDATE_SEGMENTS * nstep_md)
+                                       "rattle": apply_rattle.stats.summary()},
+                   "constraint_launches_per_step":
+                       (sum(k.launches for k in kernels) - before) / steps,
+                   "twin_relaxations": twin.call_count}
+            wall_ms = seconds * 1e3 / steps
             if mode == "eager":
                 def segment():
                     sampler.run_md(nstep_md)
@@ -2499,17 +2502,177 @@ def phase_bpmf_segments(torch, sampler, nstep_md):
                 ms = _replay_ms_per_step(torch, seg)
                 row.update({"device_ms_per_step_replays": ms,
                             "wall_ms_per_step": wall_ms,
-                            "device_share_of_wall": ms / wall_ms,
-                            "device_ops_per_step": "not measured: the "
-                            "profiler does not trace WHILE bodies"})
+                            "device_share_of_wall": ms / wall_ms})
         out[mode] = row
-        sampler.system = system
     emit({"phase": "bpmf_segments", "steps": nstep_md,
           "segments_timed": BPMF_CANDIDATE_SEGMENTS, "states": n_states,
           "replays_timed": BPMF_REPLAYS, **out})
+    check(out["eager"]["constraint_launches_per_step"] == 2.0,
+          "bpmf_segments: the constraint kernel launched "
+          f"{out['eager']['constraint_launches_per_step']} times a step")
+    check(all(row["twin_relaxations"] == 0 for row in out.values()),
+          "bpmf_segments: the plain constraint twin ran on the card")
     phase_segment_graph_check(
         torch, "bpmf_path", system, sampler.grids[0], sampler.states,
         GRAPH_CHECK_CONSTRAINED_STEPS, BPMF_DT, sampler._temps)
+
+
+# of max |twin|: float64 to rounding; float32 a few ulps (tests/
+# test_torch_cuda.py, CONSTRAINT_GATE)
+CONSTRAINT_GATE_F32 = 4 * 2.0 ** -23
+CONSTRAINT_GATE_F64 = 1e-12
+# operations a sweep needs a constraint (SHAKE, RATTLE), a row of an
+# atom's sum and an atom's closing sums (csrc/constraints.cu)
+CONSTRAINT_OPS = {"shake": 23, "rattle": 14, "row": 6, "atom": 12}
+CONSTRAINT_REPLICAS = 1000
+
+
+def _constraint_registers():
+    """Registers a thread of each instantiation of the constraint kernel,
+    from the build log: {"shake float32": n, ...}."""
+    from openmmgridforce_tpu_torch import cuda_build
+
+    out = {}
+    for entry, n in cuda_build.kernel_registers("constraints").items():
+        key = re.search(r"constraint_kernelI([fd])Lb([01])E", entry)
+        if key:
+            real = "float64" if key.group(1) == "d" else "float32"
+            kind = "shake" if key.group(2) == "1" else "rattle"
+            out[f"{kind} {real}"] = n
+    return out
+
+
+def constraint_kernel_bound(torch, cs, sweeps, kind, dtype):
+    """The least device time of a call: its reference and state read and
+    the state and sweeps written at H100_BYTES_PER_S, against the
+    operations of the sweeps each replica ran (CONSTRAINT_OPS) at the
+    dtype's peak."""
+    n_atoms = cs.inv_mass.shape[0]
+    n_rows = 2 * cs.num_constraints
+    with_rows = int((torch.bincount(cs.idx.reshape(-1),
+                                    minlength=n_atoms) > 0).sum())
+    item = torch.finfo(dtype).bits // 8
+    peak = H100_FP64_FLOPS if dtype == torch.float64 else H100_FP32_FLOPS
+    per_sweep = (cs.num_constraints * CONSTRAINT_OPS[kind]
+                 + n_rows * CONSTRAINT_OPS["row"]
+                 + with_rows * CONSTRAINT_OPS["atom"])
+    ops = int(sweeps.sum()) * per_sweep
+    moved = sweeps.numel() * (9 * n_atoms * item + 8)
+    bounds = {"bytes": moved / H100_BYTES_PER_S, "operations": ops / peak}
+    by = max(bounds, key=bounds.get)
+    return {"bytes": moved, "flops": ops, "bound_ms": 1e3 * bounds[by],
+            "bound_by": by}
+
+
+def _twin_graph_ms(torch, kind, cs, ref, state, executed):
+    """ms of the plain twin's ``executed`` masked sweeps of one call (the
+    sweeps, the count and the mask, as the recorded segments ran them in
+    WHILE nodes before the kernel) recorded in one graph and replayed."""
+    from openmmgridforce_tpu_torch.mm import constraints
+
+    if kind == "shake":
+        sweep, b = constraints._shake_sweep, constraints._shake_bufs(
+            cs, ref, state)
+        threshold = 2e-5
+    else:
+        sweep, b = constraints._rattle_sweep, constraints._rattle_bufs(
+            cs, ref)
+        threshold = 1e-8
+    x = state.clone()
+    active = torch.ones(x.shape[:-2], dtype=torch.bool, device=x.device)
+    count = torch.zeros(x.shape[:-2], dtype=torch.int64, device=x.device)
+
+    def sweeps():
+        for _ in range(executed):
+            err = sweep(b, x, active, 1.0)
+            count.add_(active)
+            active.logical_and_(err > threshold)
+
+    sweeps()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        sweeps()
+    ms = _cuda_ms(torch, graph.replay, 5)
+    del graph
+    return ms
+
+
+def phase_constraint_kernel_check(torch, lig, system, states):
+    """The constraint kernel against its plain twin on the card: SHAKE of
+    a step's drift (x + dt v) from the ladder's states and RATTLE of their
+    velocities with the correction folded in, at the ladder's 21 rungs
+    (float32 and float64) and at CONSTRAINT_REPLICAS replicas drawn from
+    them (float32): each replica's sweeps equal, the state within
+    CONSTRAINT_GATE_*; one recorded call's ms beside the twin's recorded
+    sweeps, the bound, registers and the launch plan."""
+    from openmmgridforce_tpu_torch.mm import constraints, system_from_amber
+    from openmmgridforce_tpu_torch.ops import cuda_constraints as cc
+
+    s64 = system_from_amber(lig, dtype=torch.float64,
+                            hydrogen_mass=BPMF_H_MASS, constraints="HBonds",
+                            device=states.positions.device)
+    gen = torch.Generator(device=states.positions.device)
+    gen.manual_seed(CONSTRAINT_REPLICAS)
+    pick = torch.arange(CONSTRAINT_REPLICAS,
+                        device=states.positions.device) % len(
+                            states.positions)
+    x_big = states.positions[pick]
+    v_big = states.velocities[pick] * (1.0 + 0.05 * torch.randn(
+        x_big.shape, generator=gen, device=x_big.device))
+    cases = (("float32", system, states.positions, states.velocities),
+             ("float32", system, x_big, v_big),
+             ("float64", s64, states.positions.double(),
+              states.velocities.double()))
+    rows = []
+    for name, s, x, v in cases:
+        cs = s.constraints
+        x_new = x + BPMF_DT * v
+        x_c, _ = constraints.shake_plain(cs, x, x_new)
+        v_c = v + (x_c - x_new) / BPMF_DT
+        gate = CONSTRAINT_GATE_F64 if name == "float64" \
+            else CONSTRAINT_GATE_F32
+        for kind, ref, state in (("shake", x, x_new),
+                                 ("rattle", x_c, v_c)):
+            wrapper = getattr(cc, f"constraint_{kind}")
+            plain = getattr(constraints, f"{kind}_plain")
+            threshold = 2e-5 if kind == "shake" else 1e-8
+            max_iter = 150 if kind == "shake" else 100
+            got, sweeps = wrapper(cs, ref, state, threshold, max_iter, 1.0)
+            want, want_sweeps = plain(cs, ref, state)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max() / want.abs().max())
+            same = bool(torch.equal(sweeps, want_sweeps))
+            executed = int(want_sweeps.max())
+            threads, shared = cc.launch_plan(cs.inv_mass.shape[0],
+                                             cs.num_constraints, x.dtype)
+            row = {"kind": kind, "dtype": name, "replicas": len(x),
+                   "rel_err": err, "gate": gate, "sweeps_equal": same,
+                   "executed": executed,
+                   "mean_sweeps": float(want_sweeps.double().mean()),
+                   "ms": _graph_calls_ms(torch, lambda: wrapper(
+                       cs, ref, state, threshold, max_iter, 1.0)),
+                   "eager_ms": _cuda_ms(torch, lambda: wrapper(
+                       cs, ref, state, threshold, max_iter, 1.0),
+                       LIGAND_REPS),
+                   "plain_recorded_ms": _twin_graph_ms(
+                       torch, kind, cs, ref, state, executed),
+                   **constraint_kernel_bound(torch, cs, want_sweeps, kind,
+                                             x.dtype),
+                   "threads": threads, "shared_bytes": shared,
+                   "blocks": len(x)}
+            row["bound_share"] = row["bound_ms"] / row["ms"]
+            row["us_per_sweep"] = 1e3 * row["ms"] / max(executed, 1)
+            rows.append(row)
+            check(torch.isfinite(got).all() and same and err <= gate,
+                  f"constraint kernel {kind} {name} x {len(x)}: sweeps "
+                  f"equal {same}, error {err} against {gate}")
+    emit({"phase": "constraint_kernel_check", "path": "bpmf_path",
+          "atoms": system.num_atoms,
+          "constraints": system.constraints.num_constraints,
+          "calls": rows, "registers": _constraint_registers(),
+          "replaces": "no Pallas kernel (the JAX package's lax.while_loop "
+                      "sweeps, openmmgridforce_tpu/mm/constraints.py)"})
 
 
 # ----------------------------------------------------------------------

@@ -32,6 +32,13 @@ LIBRARIES = {
     "graph_while": ("graph_while.cu",),
     "packed_eval": ("packed_eval.cu",),
     "ligand_forces": ("ligand_forces.cu",),
+    "constraints": ("constraints.cu",),
+}
+
+# flags a library adds to NVCC_FLAGS: the constraint solver repeats its
+# plain twin's arithmetic, so no product may be fused into an addition
+EXTRA_FLAGS = {
+    "constraints": ("-fmad=false",),
 }
 
 
@@ -49,8 +56,13 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
 
 
+def flags(name: str) -> tuple:
+    """nvcc's flags for the library ``name``."""
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
+
+
 def library_path(name: str) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(flags(name)).encode())
     for src in LIBRARIES[name]:
         h.update((CSRC / src).read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
@@ -103,7 +115,7 @@ def build(names=None) -> dict:
                 continue
             tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
             with open(so.with_suffix(".log"), "w") as log:
-                cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+                cmd = [nvcc_path(), *flags(name), "-o", str(tmp),
                        *(str(CSRC / s) for s in LIBRARIES[name])]
                 proc = subprocess.Popen(cmd, stdout=log,
                                         stderr=subprocess.STDOUT)

@@ -9,35 +9,32 @@ relative velocity along the constrained bonds.
 The stopping rule is the JAX package's, replica by replica: the first
 sweep always runs, a sweep measures its error before its own update, and a
 replica stops after the first sweep whose error was within tolerance (or
-after ``max_iter`` sweeps). A replica that has stopped is masked out of
-later sweeps, whose updates on it are exact no-ops, so the end is checked
-only every ``CHECK_EVERY`` sweeps and every replica still stops at its own
-sweep. Called eagerly on the card, a block is a CUDA graph, recorded once
-per constraint set and shape and replayed, and the host checks after
-every block (one synchronisation per block). Inside a recorded MD segment
-(``mm/graphs.py``) the stop moves onto the device, as JAX's
-``lax.while_loop`` has it: blocks run in a conditional WHILE node of the
-graph until no replica is active. Each call adds its sweep counts to the
-function's ``stats`` (``apply_shake.stats``, ``apply_rattle.stats``), on
-the device. Each call is a span, ``omgf.constraint.shake`` or
-``omgf.constraint.rattle`` (``utils/observe.py``).
+after ``max_iter`` sweeps). On the card a call is one launch of a
+hand-written kernel (``ops/cuda_constraints.py``, ``csrc/constraints.cu``):
+a block a replica runs the replica's sweeps to its own stop, as JAX's
+``lax.while_loop`` does, inside and outside recorded segments alike, with
+no host check. On the host the plain twin (``shake_plain``,
+``rattle_plain``) sweeps the batch with stopped replicas masked out, whose
+updates on them are exact no-ops, and checks after every sweep; the
+kernel repeats its arithmetic in the same order. Each call adds its sweep
+counts to the function's ``stats`` (``apply_shake.stats``,
+``apply_rattle.stats``), on the device. Each call is a span,
+``omgf.constraint.shake`` or ``omgf.constraint.rattle``
+(``utils/observe.py``).
 """
 
 from __future__ import annotations
 
-import collections
 import dataclasses
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..ops.cuda_constraints import constraint_rattle, constraint_shake
 from ..ops.scatter import add_rows, row_sum_plan
 from ..utils.observe import trace
 from . import graphs
-
-# sweeps between two host checks of the stopping rule
-CHECK_EVERY = 4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,41 +77,50 @@ def constraints_from_bonds(bond_idx, bond_r0, masses, which: str = "h_bonds",
 
 class SweepStats:
     """Sweep counts of a constraint function since the last ``reset``:
-    calls, the sweeps each batched call ran (``executed``) and each
-    replica's own count (the JAX loop's), summed and maximised on the
-    device, in buffers that recorded segments update in place, until
-    ``summary`` reads them. Calls while a segment block warms up before
-    its capture are not counted."""
+    calls, the sweeps each batched call ran (``executed``: its slowest
+    replica's own count) and each replica's own count (the JAX loop's),
+    summed and maximised on the device, in buffers that the card's kernel
+    (``ops/cuda_constraints.py``) and recorded segments update in place,
+    until ``summary`` reads them. Calls while a segment block warms up
+    before its capture are not counted."""
 
     def __init__(self):
-        self._acc = {}   # device -> (sums [4], maxes [2]) int64
+        self._acc = {}   # device -> (sums [4], maxes [2]) int64, scratch
+
+    def counted(self, device):
+        """The buffers a call on ``device`` counts into, made at its first
+        call there, or None while a segment block warms up: (sums, maxes,
+        scratch), int64 [4] calls, replicas, sweeps, executed; int64 [2]
+        the largest sweeps and executed; int32 [2] the kernel's per-call
+        scratch (zero between calls)."""
+        acc = self._acc.get(device)
+        if acc is None:
+            acc = self._acc[device] = (
+                torch.zeros(4, dtype=torch.int64, device=device),
+                torch.zeros(2, dtype=torch.int64, device=device),
+                torch.zeros(2, dtype=torch.int32, device=device))
+        return None if graphs.warming_up() else acc
 
     def reset(self):
-        for sums, maxes in self._acc.values():
+        for sums, maxes, _ in self._acc.values():
             sums.zero_()
             maxes.zero_()
 
-    def add(self, executed, sweeps):
-        acc = self._acc.get(sweeps.device)
-        if acc is None:
-            acc = self._acc[sweeps.device] = (
-                torch.zeros(4, dtype=torch.int64, device=sweeps.device),
-                torch.zeros(2, dtype=torch.int64, device=sweeps.device))
-        if graphs.warming_up():
+    def add(self, sweeps):
+        """Count a call of the twin whose replicas ran ``sweeps`` [...]."""
+        acc = self.counted(sweeps.device)
+        if acc is None or not sweeps.numel():
             return
-        sums, maxes = acc
-        total = sweeps.sum()
-        if not torch.is_tensor(executed):
-            executed = torch.full_like(total, executed)
-        sums.add_(torch.stack([torch.ones_like(total),
-                               torch.full_like(total, sweeps.numel()),
-                               total, executed]))
-        torch.maximum(maxes, torch.stack([sweeps.max(), executed]),
-                      out=maxes)
+        sums, maxes, _ = acc
+        executed = sweeps.max()
+        sums.add_(torch.stack([torch.ones_like(executed),
+                               torch.full_like(executed, sweeps.numel()),
+                               sweeps.sum(), executed]))
+        torch.maximum(maxes, torch.stack([executed, executed]), out=maxes)
 
     def summary(self) -> dict:
         calls = replicas = total = executed = peak = peak_exec = 0
-        for sums, maxes in self._acc.values():
+        for sums, maxes, _ in self._acc.values():
             c, r, t, e = sums.tolist()
             calls, replicas = calls + c, replicas + r
             total, executed = total + t, executed + e
@@ -129,124 +135,26 @@ class SweepStats:
                 "max_executed": peak_exec}
 
 
-class _Relaxation:
-    """Masked Jacobi sweeps over buffers: ``sweep(bufs, state, active,
-    omega)`` applies one update to ``state`` in place where ``active``
-    and returns err [...], measured before the update; ``bufs`` holds the
-    tensors it reads. ``record`` makes a CUDA graph of one block of
-    CHECK_EVERY sweeps, replayed in place of the block's few dozen small
-    launches."""
-
-    def __init__(self, sweep, bufs, state, threshold, omega):
-        self.sweep, self.bufs, self.state = sweep, bufs, state
-        self.threshold, self.omega = threshold, omega
-        batch = state.shape[:-2]
-        self.active = torch.ones(batch, dtype=torch.bool,
-                                 device=state.device)
-        self.sweeps = torch.zeros(batch, dtype=torch.int64,
-                                  device=state.device)
-        self.graph = None
-
-    def block(self, n=CHECK_EVERY):
-        for _ in range(n):
-            err = self.sweep(self.bufs, self.state, self.active, self.omega)
-            self.sweeps.add_(self.active)
-            self.active.logical_and_(err > self.threshold)
-
-    def run_device(self, max_iter: int):
-        """The sweeps with the stop on the device, for a recorded segment:
-        blocks of CHECK_EVERY sweeps in a conditional WHILE node while a
-        replica is active and a whole block fits in ``max_iter``, then the
-        rest of ``max_iter`` masked. Every replica stops at its own sweep.
-        Returns the sweeps the batch ran, a 0-d tensor."""
-        self.active.fill_(True)
-        self.sweeps.zero_()
-        n_full = max_iter // CHECK_EVERY
-        blocks = torch.zeros((), dtype=torch.int64, device=self.state.device)
-        if n_full:
-            def body():
-                self.block()
-                blocks.add_(1)
-                return self.active.any() & (blocks < n_full)
-
-            graphs.while_loop(body)
-        executed = blocks * CHECK_EVERY
-        rest = max_iter - n_full * CHECK_EVERY
-        if rest:
-            executed = executed + self.active.any() * rest
-            self.block(rest)
-        return executed
-
-    def record(self):
-        """Capture one block on a side stream, after running one as it is
-        (which loads every kernel the block launches)."""
-        self.block()
-        self.graph = torch.cuda.CUDAGraph()
-        stream = torch.cuda.Stream()
-        stream.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(stream):
-            self.graph.capture_begin()
-            self.block()
-            self.graph.capture_end()
-        torch.cuda.current_stream().wait_stream(stream)
-
-    def run(self, max_iter: int) -> int:
-        """Sweep from every replica active until all have stopped or
-        ``max_iter`` sweeps have run; returns the sweeps the batch ran."""
-        self.active.fill_(True)
-        self.sweeps.zero_()
-        executed = 0
-        while executed < max_iter:
-            n = min(CHECK_EVERY, max_iter - executed)
-            if n == CHECK_EVERY and self.graph is not None:
-                self.graph.replay()
-            else:
-                self.block(n)
-            executed += n
-            if not bool(self.active.any()):
-                break
-        return executed
-
-
-# recorded relaxations on the card, by what their graph was recorded for;
-# the oldest is dropped beyond _GRAPH_CACHE
-_GRAPHS = collections.OrderedDict()
-_GRAPH_CACHE = 8
-
-
-def _relax(sweep, cs, bufs, inputs, state, max_iter, threshold, omega):
-    """Sweep a copy of ``state`` [..., N, 3]; ``bufs`` are the tensors of
-    the constraint set, ``inputs`` those of this call. Returns (state,
-    sweeps [...], sweeps the batch ran). Inside a recorded segment the
-    sweeps stop on the device (``run_device``). Otherwise, on a CUDA
-    device, they run as replays of a graph recorded once per constraint
-    set, shape, dtype, device, threshold and omega, over buffers this
-    call's values are copied into."""
-    if not state.is_cuda or graphs.recording():
-        r = _Relaxation(sweep, {**bufs, **inputs}, state.clone(), threshold,
-                        omega)
-        executed = (r.run_device(max_iter) if state.is_cuda
-                    else r.run(max_iter))
-        return r.state, r.sweeps, executed
-    key = (sweep, id(cs), tuple(state.shape), state.dtype, state.device,
-           threshold, omega)
-    r = _GRAPHS.get(key)
-    if r is None:
-        r = _Relaxation(sweep, {**bufs, **{k: v.clone() for k, v in
-                                           inputs.items()}},
-                        state.clone(), threshold, omega)
-        r.cs = cs     # held, so that no other set takes its id
-        with torch.cuda.device(state.device):
-            r.record()
-        _GRAPHS[key] = r
-        while len(_GRAPHS) > _GRAPH_CACHE:
-            _GRAPHS.popitem(last=False)
-    for k, v in inputs.items():
-        r.bufs[k].copy_(v)
-    r.state.copy_(state)
-    with torch.cuda.device(state.device):
-        executed = r.run(max_iter)
-    return r.state.clone(), r.sweeps.clone(), executed
+def _relax(sweep, bufs, state, max_iter, threshold, omega):
+    """The plain twin's masked Jacobi sweeps on a copy of ``state`` [..., N,
+    3]: ``sweep(bufs, state, active, omega)`` applies one update in place
+    where ``active`` and returns err [...], measured before the update.
+    Every replica starts active, counts the sweeps it is active for and
+    stops after the first whose err was within ``threshold``; the loop
+    ends when none is active or after ``max_iter`` sweeps. A replica's
+    masked sweeps add exact zeros, so each replica's result is its own
+    relaxation's. Returns (state, sweeps [...])."""
+    state = state.clone()
+    batch = state.shape[:-2]
+    active = torch.ones(batch, dtype=torch.bool, device=state.device)
+    sweeps = torch.zeros(batch, dtype=torch.int64, device=state.device)
+    for _ in range(max_iter):
+        err = sweep(bufs, state, active, omega)
+        sweeps.add_(active)
+        active.logical_and_(err > threshold)
+        if not bool(active.any()):
+            break
+    return state, sweeps
 
 
 def _pair_tensors(cs: ConstraintSet):
@@ -274,6 +182,14 @@ def _pair_diff(b, x):
     return xp[..., :n, :] - xp[..., n:, :]
 
 
+def _dot3(a, b):
+    """[..., C, 1]: a . b over the last axis as ((a0 b0 + a1 b1) + a2 b2)
+    on every device, the card's kernel's order (a sum over the axis adds
+    in another order on the card)."""
+    return (a[..., 0:1] * b[..., 0:1] + a[..., 1:2] * b[..., 1:2]
+            + a[..., 2:3] * b[..., 2:3])
+
+
 def _scatter_(b, x, update):
     """Apply ``update`` [..., C, 3] to both atoms of every pair of x, in
     place, weighted -1/m_i and +1/m_j (the JAX package's two ``.at[].add``
@@ -284,9 +200,8 @@ def _scatter_(b, x, update):
 
 def _shake_sweep(b, x, active, omega):
     d = _pair_diff(b, x)
-    r2 = (d * d).sum(-1, keepdim=True)
-    diff = r2 - b["d0_sq"]
-    denom = b["two_im"] * (d * b["d_ref"]).sum(-1, keepdim=True)
+    diff = _dot3(d, d) - b["d0_sq"]
+    denom = b["two_im"] * _dot3(d, b["d_ref"])
     num = diff if omega == 1.0 else omega * diff
     g = num / torch.where(denom.abs() > 1e-12, denom, b["floor"])
     _scatter_(b, x, torch.where(active[..., None, None], g * b["d_ref"],
@@ -297,11 +212,45 @@ def _shake_sweep(b, x, active, omega):
 
 
 def _rattle_sweep(b, v, active, omega):
-    vrel = (_pair_diff(b, v) * b["d"]).sum(-1, keepdim=True)
+    vrel = _dot3(_pair_diff(b, v), b["d"])
     k = (vrel if omega == 1.0 else omega * vrel) / b["den"]
     _scatter_(b, v, torch.where(active[..., None, None], k * b["d"],
                                 b["zero"]))
     return torch.linalg.vector_norm(vrel, float("inf"), dim=(-2, -1))
+
+
+def _shake_bufs(cs: ConstraintSet, x_ref, x_new):
+    """The tensors the twin's SHAKE sweeps read."""
+    b = _pair_tensors(cs)
+    b["two_im"] = 2.0 * (b["im_i"] + b["im_j"])
+    b["d0_sq"] = (cs.length * cs.length)[:, None]
+    b["floor"] = torch.full((), 1e-12, dtype=x_new.dtype,
+                            device=x_new.device)
+    b["d_ref"] = _pair_diff(b, x_ref)
+    return b
+
+
+def _rattle_bufs(cs: ConstraintSet, x):
+    """The tensors the twin's RATTLE sweeps read."""
+    b = _pair_tensors(cs)
+    d = b["d"] = _pair_diff(b, x)
+    b["den"] = (b["im_i"] + b["im_j"]) * _dot3(d, d)
+    return b
+
+
+def shake_plain(cs: ConstraintSet, x_ref, x_new, tol=1e-5, max_iter=150,
+                omega=1.0):
+    """The plain twin of SHAKE on any device: (positions, sweeps [...])."""
+    return _relax(_shake_sweep, _shake_bufs(cs, x_ref, x_new), x_new,
+                  max_iter, 2.0 * tol, omega)
+
+
+def rattle_plain(cs: ConstraintSet, x, v, tol=1e-8, max_iter=100,
+                 omega=1.0):
+    """The plain twin of RATTLE on any device: (velocities, sweeps
+    [...])."""
+    return _relax(_rattle_sweep, _rattle_bufs(cs, x), v, max_iter, tol,
+                  omega)
 
 
 def apply_shake(cs: ConstraintSet, x_ref, x_new, tol=1e-5, max_iter=150,
@@ -311,21 +260,19 @@ def apply_shake(cs: ConstraintSet, x_ref, x_new, tol=1e-5, max_iter=150,
 
     Returns (constrained positions, sweeps [...] per replica). A replica
     stops after the first sweep whose error max |r^2 - d^2| / d^2 was at
-    most 2 tol, or after ``max_iter`` sweeps.
+    most 2 tol, or after ``max_iter`` sweeps. On the card: one launch of
+    the kernel; on the host: the plain twin.
     """
     if cs.num_constraints == 0:
         return x_new, torch.zeros(x_new.shape[:-2], dtype=torch.int64,
                                   device=x_new.device)
+    stats = apply_shake.stats
     with trace("omgf.constraint.shake"):
-        b = _pair_tensors(cs)
-        b["two_im"] = 2.0 * (b["im_i"] + b["im_j"])
-        b["d0_sq"] = (cs.length * cs.length)[:, None]
-        b["floor"] = torch.full((), 1e-12, dtype=x_new.dtype,
-                                device=x_new.device)
-        inputs = {"d_ref": _pair_diff(b, x_ref)}
-        x, sweeps, executed = _relax(_shake_sweep, cs, b, inputs, x_new,
-                                     max_iter, 2.0 * tol, omega)
-        apply_shake.stats.add(executed, sweeps)
+        if x_new.is_cuda:
+            return constraint_shake(cs, x_ref, x_new, 2.0 * tol, max_iter,
+                                    omega, stats.counted(x_new.device))
+        x, sweeps = shake_plain(cs, x_ref, x_new, tol, max_iter, omega)
+        stats.add(sweeps)
     return x, sweeps
 
 
@@ -335,19 +282,19 @@ def apply_rattle(cs: ConstraintSet, x, v, tol=1e-8, max_iter=100,
 
     Returns (velocities, sweeps [...] per replica). A replica stops after
     the first sweep whose error max |(v_i - v_j) . d| was at most ``tol``
-    (absolute, nm^2/ps), or after ``max_iter`` sweeps.
+    (absolute, nm^2/ps), or after ``max_iter`` sweeps. On the card: one
+    launch of the kernel; on the host: the plain twin.
     """
     if cs.num_constraints == 0:
         return v, torch.zeros(v.shape[:-2], dtype=torch.int64,
                               device=v.device)
+    stats = apply_rattle.stats
     with trace("omgf.constraint.rattle"):
-        b = _pair_tensors(cs)
-        d = _pair_diff(b, x)
-        inputs = {"d": d, "den": (b["im_i"] + b["im_j"])
-                  * (d * d).sum(-1, keepdim=True)}
-        v, sweeps, executed = _relax(_rattle_sweep, cs, b, inputs, v,
-                                     max_iter, tol, omega)
-        apply_rattle.stats.add(executed, sweeps)
+        if v.is_cuda:
+            return constraint_rattle(cs, x, v, tol, max_iter, omega,
+                                     stats.counted(v.device))
+        v, sweeps = rattle_plain(cs, x, v, tol, max_iter, omega)
+        stats.add(sweeps)
     return v, sweeps
 
 

@@ -11,10 +11,11 @@ the same block function is called directly, so the CPU tests cover the
 buffer and noise bookkeeping. A capture or replay that fails raises: the
 card never falls back to eager steps.
 
-Inside a recording a loop that must stop on the device (the constraint
-solver's) calls :func:`while_loop`: a conditional WHILE node of the graph
+Inside a recording a loop that must stop on the device can call
+:func:`while_loop`: a conditional WHILE node of the graph
 (``csrc/graph_while.cu``, built by ``cuda_build``) while capturing, and a
-host loop over the same operations while the block warms up.
+host loop over the same operations while the block warms up. (The
+constraint solver, its first user, now stops inside its own kernel.)
 
 Spans (``utils/observe.py``): ``omgf.segment.record`` around a recording,
 ``omgf.step.integrate`` around each step and the carry's write-back inside

@@ -91,8 +91,8 @@ def recorded_spans() -> dict:
     spans in the order they were entered, so an inner span follows the
     span it is nested in. A block's device nodes are its kernels, copies
     and fills, in the order a replay runs them. A block whose nodes
-    cannot be counted so (one that holds a conditional WHILE node: the
-    constraint solver's) maps to None."""
+    cannot be counted so (one that holds a conditional WHILE node,
+    ``mm/graphs.py::while_loop``) maps to None."""
     from ..mm import graphs
 
     return {serial: blk.nodes for serial, blk in list(graphs._BLOCKS.items())
@@ -104,8 +104,8 @@ def capture_trace(log_dir: str):
     """Profile the host and, where there is one, the CUDA card, and write
     a Chrome trace to ``log_dir/trace.json``. Yields the profiler.
 
-    While recorded segments with conditional WHILE nodes (constrained MD
-    on the card, ``mm/graphs.py``) are alive, the card is not traced and
+    While recorded segments with conditional WHILE nodes
+    (``mm/graphs.py::while_loop``) are alive, the card is not traced and
     a warning says so: the profiler sees one pass of a WHILE body per
     launch of a recording made before the session, and a session over
     such replays has ended the process with a segmentation fault

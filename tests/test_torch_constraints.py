@@ -165,9 +165,39 @@ def test_sweep_stats_count_every_call(ligand):
     assert out["max_sweeps"] == int(a.max())
     assert out["mean_sweeps"] == pytest.approx(
         (float(a.sum()) + float(b.sum())) / (2 * R))
-    # the batch runs whole blocks of sweeps until every replica has stopped
-    assert int(a.max()) <= out["max_executed"] < int(a.max()) \
-        + constraints.CHECK_EVERY
+    # a call executes as many sweeps as its slowest replica runs
+    assert out["max_executed"] == int(a.max())
+    assert out["mean_executed"] == (int(a.max()) + 3) / 2
     assert (b == 3).all()
     stats.reset()
     assert stats.summary() == {"calls": 0}
+
+
+@pytest.mark.parametrize("kind", ["shake", "rattle"])
+def test_sweep_stats_executed_is_the_slowest_replicas_count(ligand, kind):
+    """``executed`` is each call's slowest replica's own sweep count, not
+    rounded up to blocks of sweeps, on replicas that stop at other
+    sweeps."""
+    _, _, _, ts = ligand
+    counts = []
+    fn = getattr(constraints, f"apply_{kind}")
+    fn.stats.reset()
+    for seed in (11, 12, 13):
+        x_ref, x_new = (torch.from_numpy(a) for a in
+                        _pair(ligand, seed, 0.004, lead=(3 * R,)))
+        if kind == "shake":
+            _, sweeps = fn(ts.constraints, x_ref, x_new)
+        else:
+            v = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+                x_ref.shape))
+            _, sweeps = fn(ts.constraints, x_ref, v)
+        counts.append(sweeps)
+    out = fn.stats.summary()
+    slowest = [int(c.max()) for c in counts]
+    assert any(int(c.min()) < int(c.max()) for c in counts)
+    assert out["calls"] == 3
+    assert out["mean_executed"] == sum(slowest) / 3
+    assert out["max_executed"] == out["max_sweeps"] == max(slowest)
+    assert out["mean_sweeps"] == pytest.approx(
+        sum(float(c.sum()) for c in counts) / (9 * R))
+    fn.stats.reset()

@@ -179,8 +179,8 @@ def test_constraints_on_the_card_match_the_host(cuda):
     """Batched SHAKE and RATTLE in float64 on the card against the host:
     the same results within rounding (the card's fixed-order row sums add
     in another order than the host's index_add_) and the same sweep
-    counts, on two calls with other inputs (the card replays the graphs
-    the first call recorded)."""
+    counts, on two calls with other inputs (the card's kernel reads the
+    tables the first call built)."""
     from openmmgridforce_tpu_torch.mm import constraints, system
 
     lig, x, _, _ = chip_smoke.synthetic_complex(5, n_ligand=23,
@@ -578,6 +578,117 @@ def test_packed_eval_recorded_call_equals_eager(cuda, degree):
     assert torch.equal(recorded[1], eager[1])
 
 
+# of the largest |value| of the state: the kernel repeats the twin's
+# operations in the twin's order, so float64 agrees to rounding alone;
+# float32 within a few ulps, room for a sum inside ATen's reductions that
+# adds in another order than the kernel assumes
+CONSTRAINT_GATE = {torch.float32: 4 * torch.finfo(torch.float32).eps,
+                   torch.float64: 1e-12}
+
+
+@pytest.mark.parametrize("omega", [1.0, 1.2])
+@pytest.mark.parametrize("replicas", [21, 1000])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind", ["shake", "rattle"])
+def test_constraint_kernel_matches_the_twin_on_the_card(cuda, kind, dtype,
+                                                        replicas, omega):
+    """The kernel (``apply_shake`` / ``apply_rattle`` on the card) against
+    the plain twin run on the card, on the ladder's 47-atom ligand with
+    its 27 HBonds constraints, for caps 150, 6 and 3: each replica's
+    sweeps equal, the state within CONSTRAINT_GATE, one launch a call,
+    and the call counted with its slowest replica's sweeps."""
+    from openmmgridforce_tpu_torch.mm import constraints
+    from openmmgridforce_tpu_torch.ops import cuda_constraints as cc
+
+    system, x = _bench_ligand(cuda, dtype, "hbonds", replicas)
+    cs = system.constraints
+    rng = np.random.default_rng(replicas)
+    noise = torch.as_tensor(rng.standard_normal(x.shape), dtype=dtype,
+                            device=cuda)
+    if kind == "shake":
+        ref, state = x, x + 0.004 * noise
+        apply, plain = constraints.apply_shake, constraints.shake_plain
+        wrapper = cc.constraint_shake
+    else:
+        ref, _ = constraints.shake_plain(cs, x, x + 0.004 * noise)
+        state = noise
+        apply, plain = constraints.apply_rattle, constraints.rattle_plain
+        wrapper = cc.constraint_rattle
+    for max_iter in (150, 6, 3):
+        apply.stats.reset()
+        before = wrapper.launches
+        got, sweeps = apply(cs, ref, state, max_iter=max_iter, omega=omega)
+        want, want_sweeps = plain(cs, ref, state, max_iter=max_iter,
+                                  omega=omega)
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + 1
+        assert torch.equal(sweeps, want_sweeps), max_iter
+        assert torch.isfinite(got).all()
+        err = float((got - want).abs().max() / want.abs().max())
+        assert err <= CONSTRAINT_GATE[dtype], (max_iter, err)
+        out = apply.stats.summary()
+        assert (out["calls"], out["max_executed"]) == (
+            1, int(want_sweeps.max()))
+        assert out["mean_sweeps"] == pytest.approx(
+            float(want_sweeps.double().mean()))
+    apply.stats.reset()
+
+
+def _star_chain(n_atoms, seed):
+    """A ConstraintSet's arrays and a geometry that take the kernel's
+    general paths: atom 0 bonded to six atoms (more rows than an atom
+    keeps in registers), then a chain through every atom (more
+    constraints and atoms than a block's 256 threads)."""
+    rng = np.random.default_rng(seed)
+    x = np.zeros((n_atoms, 3))
+    x[1:7] = 0.11 * np.eye(3)[np.arange(6) % 3] * np.where(
+        np.arange(6) < 3, 1.0, -1.0)[:, None]
+    for a in range(7, n_atoms):
+        step = rng.standard_normal(3)
+        x[a] = x[a - 1] + 0.15 * step / np.linalg.norm(step)
+    idx = np.array([(0, k) for k in range(1, 7)]
+                   + [(a - 1, a) for a in range(7, n_atoms)])
+    length = np.linalg.norm(x[idx[:, 0]] - x[idx[:, 1]], axis=1)
+    inv_mass = 1.0 / rng.uniform(1.0, 16.0, n_atoms)
+    return idx, length, inv_mass, x
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n_atoms", [300, 1500])
+def test_constraint_kernel_takes_any_shape_that_fits(cuda, n_atoms, dtype):
+    """The kernel's general paths against the twin on the card: an atom
+    with six rows, more constraints and atoms than threads, and (1500
+    atoms: 108 / 186 KB) shared memory above 48 KB; each replica's sweeps
+    equal, the state within CONSTRAINT_GATE."""
+    from openmmgridforce_tpu_torch import convert
+    from openmmgridforce_tpu_torch.mm import constraints
+    from openmmgridforce_tpu_torch.ops import cuda_constraints as cc
+
+    idx, length, inv_mass, x = _star_chain(n_atoms, n_atoms)
+    cs = convert.constraints_from_arrays(idx, length, inv_mass, dtype=dtype,
+                                         device=cuda)
+    threads, shared = cc.launch_plan(n_atoms, len(idx), dtype)
+    assert threads == 256 and len(idx) > threads
+    assert (shared > 48 * 1024) == (n_atoms == 1500)
+    rng = np.random.default_rng(7)
+    ref = torch.as_tensor(x + 0.002 * rng.standard_normal((5,) + x.shape),
+                          dtype=dtype, device=cuda)
+    state = ref + 0.003 * torch.as_tensor(rng.standard_normal(ref.shape),
+                                          dtype=dtype, device=cuda)
+    v = torch.as_tensor(rng.standard_normal(ref.shape), dtype=dtype,
+                        device=cuda)
+    for kind, a, b in (("shake", ref, state), ("rattle", ref, v)):
+        for max_iter in (150, 6):
+            got, sweeps = getattr(constraints, f"apply_{kind}")(
+                cs, a, b, max_iter=max_iter)
+            want, want_sweeps = getattr(constraints, f"{kind}_plain")(
+                cs, a, b, max_iter=max_iter)
+            torch.cuda.synchronize()
+            assert torch.equal(sweeps, want_sweeps), (kind, max_iter)
+            err = float((got - want).abs().max() / want.abs().max())
+            assert err <= CONSTRAINT_GATE[dtype], (kind, max_iter, err)
+
+
 # ----------------------------------------------------------------------
 # Recorded MD segments
 # ----------------------------------------------------------------------
@@ -611,9 +722,9 @@ def _ladder_system(cuda, dtype, constraints=None):
 def test_md_runner_graph_equals_eager(cuda, constraints):
     """The recorded segment against the same blocks run eagerly, with the
     same explicit noise, on a ladder of 8 replicas: equal bit for bit in
-    float32 (every force and constraint scatter adds in a fixed order on
-    the card, ``ops/scatter.py``; the constrained step stops its sweeps in
-    a WHILE node)."""
+    float32 (every force and constraint kernel adds in a fixed order on
+    the card; the constrained step's SHAKE and RATTLE stop inside their
+    kernel)."""
     from openmmgridforce_tpu_torch import convert
     from openmmgridforce_tpu_torch.mm import graphs, system
 
@@ -1133,39 +1244,46 @@ def test_nccl_runner_records_its_all_reduce(cuda):
 def test_a_replay_runs_the_device_nodes_its_capture_counted(cuda):
     """A recorded block's device nodes, counted while it was captured,
     are the operations one traced replay of it runs; the force terms' and
-    the step's spans hold every node. A block with WHILE nodes (the
-    constraint solver's) has no split."""
+    the step's spans hold every node. A constrained block (HBonds, at 2
+    fs) has the split too: each step's ``omgf.constraint.shake`` and
+    ``omgf.constraint.rattle`` hold the constraint kernel's one node."""
     from openmmgridforce_tpu_torch import convert
     from openmmgridforce_tpu_torch.mm import graphs, system
 
-    x, ts, binding = _ladder_system(cuda, torch.float32)
-    pos = np.repeat(x[None], 8, axis=0)
-    run = system.make_md_runner(graphs.BLOCK, 0.001, 5.0, device=cuda)
-    states = convert.states_from_arrays(pos, np.zeros_like(pos), seed=0,
-                                        dtype=torch.float32, device=cuda)
-    run(states, ts, [binding], 300.0)
-    seg = list(system._SEGMENTS.values())[-1].segment
-    blk = seg._blocks[graphs.BLOCK]
-    total, spans = blk.nodes
-    assert {name for name, _, n in spans if n} == {
-        "omgf.step.integrate", "omgf.force.bonded", "omgf.force.pair",
-        "omgf.force.grid"}
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        blk.play(seg)
+    terms = {"omgf.step.integrate", "omgf.force.bonded", "omgf.force.pair",
+             "omgf.force.grid"}
+    solver = {"omgf.constraint.shake", "omgf.constraint.rattle"}
+    for constraints, dt in ((None, 0.001), ("HBonds", 0.002)):
+        x, ts, binding = _ladder_system(cuda, torch.float32, constraints)
+        pos = np.repeat(x[None], 8, axis=0)
+        run = system.make_md_runner(graphs.BLOCK, dt, 5.0, device=cuda)
+        states = convert.states_from_arrays(pos, np.zeros_like(pos), seed=0,
+                                            dtype=torch.float32, device=cuda)
+        run(states, ts, [binding], 300.0)
+        seg = list(system._SEGMENTS.values())[-1].segment
+        blk = seg._blocks[graphs.BLOCK]
+        assert blk.nodes is not None, constraints
+        total, spans = blk.nodes
+        assert {name for name, _, n in spans if n} == (
+            terms | solver if constraints else terms)
+        kernels = [n for name, _, n in spans if name in solver]
+        assert kernels == ([1] * 2 * graphs.BLOCK if constraints else [])
         torch.cuda.synchronize()
-    ops = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA
-           and not e.is_user_annotation]
-    assert len(ops) == total
-    assert f"omgf.replay.{blk.serial}" in {e.name for e in prof.events()}
-
-    _, ts_c, binding_c = _ladder_system(cuda, torch.float32, "HBonds")
-    run(states, ts_c, [binding_c], 300.0)
-    seg = list(system._SEGMENTS.values())[-1].segment
-    assert seg._blocks[graphs.BLOCK].nodes is None
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            blk.play(seg)
+            torch.cuda.synchronize()
+        ops = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.is_user_annotation]
+        assert len(ops) == total, constraints
+        assert f"omgf.replay.{blk.serial}" in {e.name
+                                               for e in prof.events()}
+        if constraints:
+            assert sum("constraint_kernel" in e.name for e in ops) \
+                == 2 * graphs.BLOCK
+    assert graphs.while_recordings() == 0
 
 
 def test_generation_on_the_card_emits_the_memory_guard_span(cuda):

@@ -18,7 +18,8 @@ from openmmgridforce_tpu_torch import convert
 from openmmgridforce_tpu_torch.mm import constraints, system
 from openmmgridforce_tpu_torch import cuda_build
 from openmmgridforce_tpu_torch.io import streaming
-from openmmgridforce_tpu_torch.ops import (cuda_gridgen, cuda_gridgen_derivs,
+from openmmgridforce_tpu_torch.ops import (cuda_constraints, cuda_gridgen,
+                                           cuda_gridgen_derivs,
                                            cuda_ligand_forces,
                                            cuda_packed_eval, gridgen, packed,
                                            pairwise, radial)
@@ -80,18 +81,26 @@ def test_every_kernel_has_its_source():
     """One library per kernel of the TPU-kernel table (K1, K2, and K3,
     the fused evaluation of a pack), each with its sources under csrc/, a
     wrapper with a launch counter, and a plain twin beside it; beside them
-    the binding that adds conditional WHILE nodes to recorded MD segments
-    and the MD step's intra-ligand force kernels (no TPU kernel's port),
-    whose wrappers count their launches and take plain twins on the
-    host."""
+    the binding that adds conditional WHILE nodes to recorded MD segments,
+    the MD step's intra-ligand force kernels and the constraint solver (no
+    TPU kernel's port), whose wrappers count their launches and have plain
+    twins on the host."""
     kernels = {"gridgen_values", "gridgen_derivs", "packed_eval"}
     assert set(cuda_build.LIBRARIES) == kernels | {"graph_while",
-                                                   "ligand_forces"}
-    text = (cuda_build.CSRC / "ligand_forces.cu").read_text()
-    for name in ("ligand_bonded", "ligand_pairs"):
-        assert f'extern "C" int {name}_launch(' in text
-        assert getattr(cuda_ligand_forces, name).launches == 0
-    assert "__global__" in text
+                                                   "ligand_forces",
+                                                   "constraints"}
+    for library, module, names in (
+            ("ligand_forces", cuda_ligand_forces,
+             ("ligand_bonded", "ligand_pairs")),
+            ("constraints", cuda_constraints,
+             ("constraint_shake", "constraint_rattle"))):
+        text = (cuda_build.CSRC / f"{library}.cu").read_text()
+        for name in names:
+            assert f'extern "C" int {name}_launch(' in text
+            assert getattr(module, name).launches == 0
+        assert "__global__" in text
+    assert callable(constraints.shake_plain)
+    assert callable(constraints.rattle_plain)
     text = (cuda_build.CSRC / "graph_while.cu").read_text()
     assert 'extern "C"' in text and "__global__" in text
     assert "cudaGraphCondTypeWhile" in text

@@ -243,30 +243,33 @@ def test_system_without_nonbonded_matches_jax(constrained):
                                atol=1e-10)
 
 
-def test_device_stop_equals_the_host_check(constrained):
-    """The sweeps a recorded segment runs (a device-side stop: blocks while
-    a replica is active) give the host-checked relaxation's positions,
-    per-replica sweeps and executed sweeps, bit for bit."""
+@pytest.mark.parametrize("kind", ["shake", "rattle"])
+def test_each_replica_relaxes_as_if_alone(constrained, kind):
+    """The property the card's kernel rests on (a block a replica, each
+    stopping at its own sweep): the batched twin's state and per-replica
+    sweeps equal each replica relaxed alone, bit for bit, for caps 150, 6
+    and 3 (a stopped replica's masked sweeps add exact zeros)."""
     _, _, ts, jstates = constrained
     cs = ts.constraints
     x_ref = torch.from_numpy(np.asarray(jstates.positions))
     rng = np.random.default_rng(4)
     x_new = x_ref + torch.from_numpy(rng.normal(0.0, 0.004, x_ref.shape))
-    b = constraints._pair_tensors(cs)
-    b["two_im"] = 2.0 * (b["im_i"] + b["im_j"])
-    b["d0_sq"] = (cs.length * cs.length)[:, None]
-    b["floor"] = torch.full((), 1e-12, dtype=torch.float64)
-    b["d_ref"] = constraints._pair_diff(b, x_ref)
+    v = torch.from_numpy(rng.standard_normal(x_ref.shape))
+    if kind == "shake":
+        def relax(i, max_iter):
+            return constraints.shake_plain(cs, x_ref[i], x_new[i],
+                                           max_iter=max_iter)
+    else:
+        def relax(i, max_iter):
+            return constraints.rattle_plain(cs, x_ref[i], v[i],
+                                            max_iter=max_iter)
+    whole = slice(None)
     for max_iter in (150, 6, 3):
-        host = constraints._Relaxation(constraints._shake_sweep, b,
-                                       x_new.clone(), 2e-5, 1.0)
-        executed = host.run(max_iter)
-        dev = constraints._Relaxation(constraints._shake_sweep, b,
-                                      x_new.clone(), 2e-5, 1.0)
-        dev_executed = dev.run_device(max_iter)
-        assert torch.equal(host.state, dev.state)
-        assert torch.equal(host.sweeps, dev.sweeps)
-        assert int(dev_executed) == executed
+        state, sweeps = relax(whole, max_iter)
+        alone = [relax(i, max_iter) for i in range(len(x_ref))]
+        assert torch.equal(state, torch.stack([a[0] for a in alone]))
+        assert torch.equal(sweeps, torch.stack([a[1] for a in alone]))
+        assert int(sweeps.max()) <= max_iter
 
 
 # ----------------------------------------------------------------------
